@@ -51,6 +51,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 `-m 'not slow'` run"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels); skips without one",
+    )
 
 
 @pytest.fixture(autouse=True)
