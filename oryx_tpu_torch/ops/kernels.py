@@ -1,11 +1,13 @@
-"""The ALS trainer's two hand-written Hopper kernels, each beside its plain
-PyTorch version.
+"""The port's hand-written Hopper kernels, each beside its plain PyTorch
+version.
 
 * :func:`gather_gramian_accumulate` (``csrc/gather_gramian.cu``) replaces
   the reference's Pallas ``_make_gather_gramian_kernel``
   (``oryx_tpu/ops/pallas_kernels.py:221-289``);
 * :func:`spd_solve_batched` (``csrc/spd_solve.cu``) replaces
-  ``_spd_solve_kernel`` (``pallas_kernels.py:89-116``).
+  ``_spd_solve_kernel`` (``pallas_kernels.py:89-116``);
+* :func:`kmeans_assign_accumulate` (``csrc/kmeans_assign.cu``), one Lloyd
+  sweep of k-means, replaces ``_kernel`` (``pallas_kernels.py:357-388``).
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests run the trainer); a CUDA
@@ -31,7 +33,8 @@ from oryx_tpu_torch.ops import _build
 log = logging.getLogger(__name__)
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES = {"gather_gramian_accumulate": 0, "spd_solve_batched": 0}
+LAUNCHES = {"gather_gramian_accumulate": 0, "spd_solve_batched": 0,
+            "kmeans_assign_accumulate": 0}
 
 
 def reset_launches() -> None:
@@ -58,6 +61,11 @@ _SIGNATURES = {
         _C_INT,
     ),
     "oryx_spd_solve": ([_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_PTR], _C_INT),
+    "oryx_kmeans_assign": (
+        [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
+         _C_PTR, _C_PTR, _C_PTR, _C_PTR],
+        _C_INT,
+    ),
 }
 _cholesky_logged: set = set()
 
@@ -239,3 +247,78 @@ def spd_solve_cholesky(a, b):
     """The reference's fallback semantics: Cholesky factor and solve."""
     chol, _ = torch.linalg.cholesky_ex(a.float())
     return torch.cholesky_solve(b.float()[..., None], chol)[..., 0]
+
+
+# -- k-means Lloyd sweep --------------------------------------------------------
+
+# The sweep kernel's partial sums: at most this many per-CTA slabs, at least
+# 256 points each, and a workspace of at most 2^26 floats (256 MB). The count
+# depends on N, K and D only, so the summation order is the same on every card.
+KMEANS_MAX_PARTS = 1024
+KMEANS_POINTS_PER_PART = 256
+KMEANS_WORKSPACE_FLOATS = 1 << 26
+
+
+def kmeans_parts(n: int, k: int, d: int) -> int:
+    """Number of partial slabs the sweep kernel reduces for (N, K, D)."""
+    slab = k * d + k + 1
+    return max(1, min(-(-n // KMEANS_POINTS_PER_PART), KMEANS_MAX_PARTS,
+                      KMEANS_WORKSPACE_FLOATS // slab))
+
+
+def kmeans_assign_accumulate(points, weights, centers):
+    """One Lloyd sweep: assign each point to its nearest centre and
+    accumulate per centre.
+
+    Args: points (N, D), weights (N,) (0 = the point contributes nothing),
+    centers (K, D), all float32. Returns (sums (K, D), counts (K,), cost ())
+    float32: the weighted sums and weights of the points nearest each centre,
+    and the weighted sum of their squared distances. Distances are
+    ``max(|p|² − 2·p·c + |c|², 0)``; ties go to the lowest centre index.
+    """
+    name = "kmeans_assign_accumulate"
+    if not _route(name, points.device):
+        return kmeans_assign_accumulate_plain(points, weights, centers)
+    dev = points.device
+    f32 = (torch.float32,)
+    _check_cuda(name, dev, points=(points, f32), weights=(weights, f32),
+                centers=(centers, f32))
+    n, d = points.shape
+    k = centers.shape[0]
+    if weights.shape != (n,) or centers.shape != (k, d) or k == 0 or d == 0:
+        raise ValueError(f"{name}: points {tuple(points.shape)}, weights "
+                         f"{tuple(weights.shape)}, centers "
+                         f"{tuple(centers.shape)} do not fit together")
+    slab = k * d + k + 1
+    if n == 0:
+        out = torch.zeros(slab, device=dev, dtype=torch.float32)
+    else:
+        parts = kmeans_parts(n, k, d)
+        assign = torch.empty(n, device=dev, dtype=torch.int32)
+        min_d2 = torch.empty(n, device=dev, dtype=torch.float32)
+        ws = torch.empty((parts, slab), device=dev, dtype=torch.float32)
+        out = torch.empty(slab, device=dev, dtype=torch.float32)
+        with torch.cuda.device(dev):
+            err = _entry("kmeans_assign", "oryx_kmeans_assign")(
+                points.data_ptr(), weights.data_ptr(), centers.data_ptr(),
+                n, d, k, parts, assign.data_ptr(), min_d2.data_ptr(),
+                ws.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on(name, err)
+        LAUNCHES[name] += 1
+    return out[:k * d].view(k, d), out[k * d:k * d + k], out[-1]
+
+
+def kmeans_assign_accumulate_plain(points, weights, centers):
+    """Plain PyTorch version of :func:`kmeans_assign_accumulate`: the same
+    expansion, clamp and first-index argmin; the sums as a one-hot matrix
+    product. Other summation orders."""
+    d2 = ((points * points).sum(dim=1, keepdim=True)
+          - 2.0 * (points @ centers.T)
+          + (centers * centers).sum(dim=1)[None, :]).clamp_min(0.0)
+    nearest = d2.argmin(dim=1)
+    min_d2 = d2.gather(1, nearest[:, None])[:, 0]
+    indicator = (torch.nn.functional.one_hot(nearest, centers.shape[0])
+                 .to(points.dtype) * weights[:, None])
+    return indicator.T @ points, indicator.sum(dim=0), (min_d2 * weights).sum()

@@ -10,11 +10,18 @@ functions take such arrays and return the port's objects on a device:
   ``train._init_factors(padded_rows, n_items, k, key)`` → the ``init_y``
   argument of the port's ``als_train``. ``jax.random`` streams cannot be
   reproduced in torch, so a test that compares trained values starts both
-  trainers from the same Y₀ this way.
+  trainers from the same Y₀ this way;
+* :func:`kmeans_centers` — starting centres, such as the reference's
+  ``train._init_centers(key, points, k, init)`` → the ``init_centers``
+  argument of the port's ``kmeans_train``, for the same reason;
+* :func:`kmeans_serving_model` — clusters (the reference's ``ClusterInfo``
+  list or a PMML ClusteringModel written by either package) → a loaded
+  :class:`~oryx_tpu_torch.models.kmeans.serving.KMeansServingModel`.
 """
 
 from __future__ import annotations
 
+import xml.etree.ElementTree as ET
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -22,6 +29,10 @@ import torch
 
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als.serving import ALSServingModel
+from oryx_tpu_torch.models.kmeans import pmml_codec
+from oryx_tpu_torch.models.kmeans.model import ClusterInfo
+from oryx_tpu_torch.models.kmeans.serving import KMeansServingModel
+from oryx_tpu_torch.models.schema import InputSchema
 
 
 def _host(a) -> np.ndarray:
@@ -49,3 +60,23 @@ def init_y(y0, device=None) -> torch.Tensor:
     """Initial item factors as a float32 tensor on ``device`` (a copy: the
     reference's arrays may be read-only views)."""
     return torch.tensor(_host(y0), device=resolve(device))
+
+
+def kmeans_centers(centers, device=None) -> torch.Tensor:
+    """Starting centres (k, d), or one set per run (runs, k, d), as a
+    float32 tensor on ``device`` (a copy)."""
+    return torch.tensor(_host(centers), device=resolve(device))
+
+
+def kmeans_serving_model(clusters_or_pmml,
+                         schema: InputSchema) -> KMeansServingModel:
+    """A serving model holding ``clusters_or_pmml``: a PMML document (an
+    ``xml.etree`` element, as both packages' codecs produce) or a sequence
+    of clusters with ``id``, ``center`` and ``count``."""
+    if isinstance(clusters_or_pmml, ET.Element):
+        pmml_codec.validate_pmml_vs_schema(clusters_or_pmml, schema)
+        clusters = pmml_codec.read(clusters_or_pmml)
+    else:
+        clusters = [ClusterInfo(c.id, np.asarray(c.center, dtype=np.float64),
+                                c.count) for c in clusters_or_pmml]
+    return KMeansServingModel(clusters, schema)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from oryx_tpu.common import rand as ref_rand
 from oryx_tpu.models.als import evaluate as ref_eval
@@ -15,6 +16,9 @@ from oryx_tpu.models.als.serving import ALSServingModel as RefModel
 from oryx_tpu_torch import state
 from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.models.als import data, evaluate
+
+# six xdist workers share the CPU with wall-clock gates elsewhere in the suite
+torch.set_num_threads(1)
 
 # score tolerance (absolute, scores are O(1)): float32 dot products of 12
 # terms in another summation order

@@ -23,6 +23,9 @@ from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.data import RatingBatch
 from test_gramian_kernel import _skewed_batch
 
+# six xdist workers share the CPU with wall-clock gates elsewhere in the suite
+torch.set_num_threads(1)
+
 
 def _port_batch(batch):
     """The same COO arrays and id maps as a port-side RatingBatch."""

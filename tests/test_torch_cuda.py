@@ -8,7 +8,8 @@ runs on a machine that has only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: the suite's conftest imports JAX.) The plain versions
 are themselves held against the reference's Pallas kernels by
-``tests/test_torch_kernels.py`` on the CPU.
+``tests/test_torch_kernels.py`` and ``tests/test_torch_kmeans_kernel.py``
+on the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import torch
 
 from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.data import RatingBatch
+from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.ops import kernels as K
+from chip_smoke import sweep_check
+
+# six xdist workers share the CPU with wall-clock gates elsewhere in the suite
+torch.set_num_threads(1)
 
 SEED = 0x7A1C
 
@@ -112,3 +118,96 @@ def test_als_train_on_the_card_matches_the_cpu(cuda_device):
                           device="cpu", fused_gramian=True, spd_kernel=True)
     for got, ref in ((x.cpu(), cx), (y.cpu(), cy)):
         assert (got - ref).abs().max() / ref.abs().max() < 1e-4
+
+
+# -- k-means Lloyd sweep --------------------------------------------------------
+
+
+def _blob_points(rng, n, k, d, spread=10.0):
+    means = rng.uniform(-spread, spread, (k, d))
+    return (means[rng.integers(0, k, n)] + rng.standard_normal((n, d))) \
+        .astype(np.float32), means.astype(np.float32)
+
+
+def _sweep_against_plain(points, weights, centers, near_ties):
+    """One launch of the kernel, held against its plain version by
+    ``chip_smoke.sweep_check`` (its docstring states each tolerance)."""
+    before = K.LAUNCHES["kmeans_assign_accumulate"]
+    sweep_check(points, weights, centers, near_ties, "test")
+    assert K.LAUNCHES["kmeans_assign_accumulate"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(700, 7, 5), (1013, 9, 9), (1, 3, 2),
+                                   (5000, 256, 64), (20000, 1024, 128)])
+def test_kmeans_kernel_matches_plain_on_planted_blobs(cuda_device, n, k, d):
+    """Shapes off every tile, one point, the smoke's K and D, and K·D past
+    the shared-memory slab (the partial sums then live in device memory)."""
+    rng = np.random.default_rng(SEED + n + k)
+    pts, means = _blob_points(rng, n, k, d)
+    weights = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    weights[rng.random(n) < 0.1] = 0.0
+    if n == 1:
+        weights[:] = 1.0
+    t = [torch.from_numpy(a).to(cuda_device) for a in (pts, weights, means)]
+    _sweep_against_plain(*t, near_ties=False)
+
+
+@pytest.mark.cuda
+def test_kmeans_kernel_matches_plain_with_near_ties(cuda_device):
+    rng = np.random.default_rng(SEED)
+    pts = rng.standard_normal((200_000, 64), dtype=np.float32)
+    centers = rng.standard_normal((256, 64), dtype=np.float32)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (pts, np.ones(len(pts), np.float32), centers)]
+    _sweep_against_plain(*t, near_ties=True)
+
+
+@pytest.mark.cuda
+def test_kmeans_kernel_is_deterministic_and_ties_low(cuda_device):
+    """The same inputs give the same bits; duplicated centres take no points
+    (ties go to the lower index); weight-0 points contribute nothing."""
+    rng = np.random.default_rng(SEED + 1)
+    pts, means = _blob_points(rng, 30_000, 40, 16)
+    means[7] = means[3]
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (pts, np.ones(len(pts), np.float32), means)]
+    a = K.kmeans_assign_accumulate(*t)
+    b = K.kmeans_assign_accumulate(*t)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert float(a[1][7]) == 0.0 and float(a[1][3]) > 0
+    w = t[1].clone()
+    w[::2] = 0.0
+    half = K.kmeans_assign_accumulate(t[0][1::2].contiguous(), t[1][1::2].contiguous(),
+                                      t[2])
+    masked = K.kmeans_assign_accumulate(t[0], w, t[2])
+    assert torch.equal(half[1], masked[1])
+    assert torch.allclose(half[0], masked[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kmeans_train_on_the_card_matches_the_cpu(cuda_device):
+    """From the same injected centres on planted blobs: the card's sweep
+    kernel and the CPU's plain version assign alike, so counts are exact and
+    centres agree to 1e-4 after 6 iterations; seeded runs on the card launch
+    the kernel runs × (iterations + 1) times."""
+    rng = np.random.default_rng(SEED + 2)
+    pts, means = _blob_points(rng, 20_000, 32, 16)
+    c0 = pts[rng.choice(len(pts), 32, replace=False)]
+    K.reset_launches()
+    centers, counts = kmtrain.kmeans_train(pts, 32, iterations=6, runs=1,
+                                           init_centers=c0)
+    assert K.LAUNCHES["kmeans_assign_accumulate"] == 7
+    c_centers, c_counts = kmtrain.kmeans_train(pts, 32, iterations=6, runs=1,
+                                               init_centers=c0, device="cpu")
+    np.testing.assert_array_equal(counts, c_counts)
+    np.testing.assert_allclose(centers, c_centers, rtol=1e-4, atol=1e-4)
+    for init in (kmtrain.INIT_KMEANS_PARALLEL, kmtrain.INIT_RANDOM):
+        K.reset_launches()
+        centers, counts = kmtrain.kmeans_train(
+            pts, 32, iterations=3, runs=2, init=init,
+            generator=torch.Generator().manual_seed(3))
+        assert K.LAUNCHES["kmeans_assign_accumulate"] == 2 * 4
+        assert centers.shape == (32, 16) and counts.sum() == len(pts)
+        assert np.isfinite(centers).all()

@@ -18,11 +18,18 @@ import torch
 
 import oryx_tpu_torch
 from oryx_tpu_torch import state
+from oryx_tpu_torch.api.keymessage import KeyMessage
+from oryx_tpu_torch.common import config
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als import train
 from oryx_tpu_torch.models.als.data import RatingBatch
 from oryx_tpu_torch.models.als.serving import ALSServingModel
+from oryx_tpu_torch.models.kmeans import train as kmtrain
+from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
 from oryx_tpu_torch.ops import vectormath
+
+# six xdist workers share the CPU with wall-clock gates elsewhere in the suite
+torch.set_num_threads(1)
 
 PKG = os.path.dirname(os.path.abspath(oryx_tpu_torch.__file__))
 REPO = os.path.dirname(PKG)
@@ -74,6 +81,13 @@ def _entry_points():
     batch = RatingBatch(np.array([0, 1], np.int32), np.array([1, 0], np.int32),
                         np.ones(2, np.float32), [0, 1], [0, 1])
     rows = np.ones((2, 3), np.float32)
+    points = np.arange(12, dtype=np.float32).reshape(4, 3)
+    kmeans_conf = config.overlay_on(
+        {"oryx.input-schema.num-features": 3,
+         "oryx.input-schema.categorical-features": [],
+         "oryx.kmeans.iterations": 1, "oryx.kmeans.runs": 1},
+        config.get_default())
+    lines = [KeyMessage(None, ",".join(map(str, p))) for p in points.tolist()]
     return {
         "resolve": lambda **kw: resolve(**kw),
         "als_train": lambda **kw: train.als_train(batch, 3, 0.1, 1.0, True, 1,
@@ -87,6 +101,12 @@ def _entry_points():
         "state.init_y": lambda **kw: state.init_y(rows, **kw),
         "transpose_times_self": lambda **kw: vectormath.transpose_times_self(
             rows, **kw),
+        "kmeans_train": lambda **kw: kmtrain.kmeans_train(points, 2, 1, **kw),
+        "fit_index_centroids": lambda **kw: kmtrain.fit_index_centroids(
+            points, 2, 1, **kw),
+        "KMeansUpdate.build_model": lambda **kw: KMeansUpdate(
+            kmeans_conf, **kw).build_model(None, lines, [2], None),
+        "state.kmeans_centers": lambda **kw: state.kmeans_centers(rows, **kw),
     }
 
 
