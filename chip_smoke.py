@@ -11,7 +11,9 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
   env      torch/CUDA versions, the card's name and power limit (the raw
            ``nvidia-smi`` line is printed on its own line too);
   build    every kernel built from ``oryx_tpu_torch/ops/csrc`` into
-           ``build/`` (one ``nvcc`` per source, started together);
+           ``build/`` (one ``nvcc`` per source, started together); the
+           registers and spill bytes ``ptxas -v`` logged for each SPD kernel
+           (a spill fails);
   data     a seeded synthetic implicit dataset at the batch benchmark's
            training shape — 100,000 users × 10,000 items, ~1,000,000
            interactions with planted rank-5 preferences and power-law item
@@ -21,11 +23,21 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            the first packed block of each side of that data (k = 50;
            gather-Gramian in float32 and bfloat16), timed with CUDA events
            beside the plain version, a one-call library equivalent where
-           one exists, and the card's bound for the same work;
+           one exists, and the card's bound for the same work; the SPD
+           solve also on 7,692 seeded systems at k = 10 (the reference's
+           default; warp kernel) and k = 128 (CTA kernel), and each k <= 64
+           beside the CTA kernel on the same systems (both SPD kernels
+           timed by bare launches of their C entries, the wrapper apart;
+           the reference's fused elimination step's float64 error is
+           reported beside the plain version's);
+  spd_crossover
+           the warp and CTA SPD kernels on the same 7,692 seeded systems at
+           k = 1 .. 65, around the warp kernel's templates and crossover;
   train    the main path: ``als_train`` (k = 50, λ = 1, α = 1, implicit,
            3 iterations, float32) with the launch counters set to 0 just
            before; both kernels must have launched once per row block per
-           iteration; factors finite; hold-out AUC > 0.75;
+           iteration, at each side's block shape, the SPD solve in its warp
+           kernel; factors finite; hold-out AUC > 0.75;
   serve    the trained model loaded into ``ALSServingModel``: 256 users'
            ``top_n_batch(how_many=10)`` excluding their training items,
            checked against an exact float64 scan (overlap >= 0.99); the
@@ -37,10 +49,11 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            at batch 1, 16 and 256, top-10, checked against an exact scan;
   kmeans_kernel
            the Lloyd-sweep kernel against its plain version on 1,000,000 ×
-           64 standard-normal points with K = 256 (near ties allowed, timed
-           beside the plain version, the cross term's ``torch.matmul`` and
-           the card's bound), on 200,000 points of 256 planted blobs (exact
-           counts), and at K = 1,024, D = 128 (chunked centres, partial sums
+           64 standard-normal points with K = 256 (near ties allowed), on
+           200,000 points of 256 planted blobs (exact counts) and on their
+           first 100,000 (the update path's shape), both timed beside the
+           plain version, the cross term's ``torch.matmul`` and the card's
+           bound; and at K = 1,024, D = 128 (chunked centres, partial sums
            in device memory);
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
@@ -59,7 +72,12 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            seconds apart.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises: the script
+``{"ok": true, "device": {...}}``. Each kernels-line entry's ``launches``
+is its kernel's count at its shape in the run of the path that reaches it
+(``K.SHAPE_LAUNCHES``): the ALS train and serve run, ``build_model``'s run
+or ``kmeans_train``'s timed call; an entry at a shape no path runs (the
+bfloat16 gather-Gramian, the synthetic SPD systems) shows 0, with
+``on_main_path`` false. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. Without a CUDA card it exits 1
 at once.
 """
@@ -67,6 +85,7 @@ at once.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +130,12 @@ SPD_REPLACES = "oryx_tpu/ops/pallas_kernels.py:89"
 KM_SOURCE = "oryx_tpu_torch/ops/csrc/kmeans_assign.cu"
 KM_REPLACES = "oryx_tpu/ops/pallas_kernels.py:357"
 ALS_WRAPPERS = ("gather_gramian_accumulate", "spd_solve_batched")
+# synthetic SPD cases: the user block's system count at the reference's
+# default k = 10 (the warp kernel) and at k = 128 (the CTA kernel)
+SPD_SYNTHETIC_SYSTEMS, SPD_SYNTHETIC_K = 7_692, (10, 128)
+# SPD timings: calls per CUDA-event pair (the warp kernel at small k is
+# shorter than one call's host time)
+SPD_INNER = 20
 
 # k-means: bench_batch.py's accelerator shape (1M × 64, K = 256, 8
 # iterations); the update path's data are planted Gaussian blobs (centres
@@ -141,9 +166,12 @@ def gpu_query() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the card, each call between two
-    CUDA events."""
+def time_ms(fn, reps: int = 15, warmup: int = 3, inner: int = 1) -> float:
+    """Median milliseconds of one call of ``fn`` on the card: ``inner``
+    calls back to back between two CUDA events, ``reps`` times. An ``inner``
+    of more than 1 keeps the card busy while the host enqueues the next
+    call, so a kernel shorter than the host's call overhead is timed for
+    itself."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -152,10 +180,11 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -215,6 +244,15 @@ def holdout_batch(lines, users, items) -> als_data.RatingBatch:
 # -- kernels ----------------------------------------------------------------
 
 
+def launch_key(kernel: str, shape: tuple) -> str:
+    return f"{kernel} {tuple(shape)}"
+
+
+def shape_launches() -> dict:
+    """``K.SHAPE_LAUNCHES`` with its keys as strings, for JSON."""
+    return {launch_key(*key): n for key, n in K.SHAPE_LAUNCHES.items()}
+
+
 def gg_entry(side, y, dtype, label):
     """The gather-Gramian kernel on block 0 of ``side`` against its plain
     version."""
@@ -253,7 +291,8 @@ def gg_entry(side, y, dtype, label):
     return {
         "name": f"gather_gramian_accumulate[{label}]",
         "route": "cuda", "source": GG_SOURCE, "replaces": GG_REPLACES,
-        "wrapper": "gather_gramian_accumulate",
+        "launch_key": launch_key("gather_gramian_accumulate",
+                                 (side.block + 1, s, t, k, str(ys.dtype))),
         "shape": {"block": side.block, "slots": s, "T": t, "k": k,
                   "valid_entries": n_valid, "dtype": str(dtype)},
         "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
@@ -262,8 +301,8 @@ def gg_entry(side, y, dtype, label):
     }
 
 
-def spd_entry(side, y):
-    """The SPD kernel on block 0's regularised normal equations."""
+def spd_blocks(side, y):
+    """Block 0's regularised normal equations (A, b) on the card."""
     yty = y.T @ y
     big_a, big_b, _ = tr._normal_equations(
         y, side.srows[0], side.scols[0], side.svals[0], side.slens[0],
@@ -271,35 +310,159 @@ def spd_entry(side, y):
         implicit=True, slot_chunk=side.slot_chunk, yty=yty,
         fused_gramian=True,
     )
-    big_a, big_b = big_a.contiguous(), big_b.contiguous()
+    return big_a.contiguous(), big_b.contiguous()
+
+
+def spd_synthetic(dev, n, k, seed):
+    """n seeded SPD systems m·mᵀ + 2I (m standard normal × 0.3) on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn((n, k, k), device=dev, generator=g) * 0.3
+    a = m @ m.transpose(1, 2) + 2.0 * torch.eye(k, device=dev)
+    return a.contiguous(), torch.randn((n, k), device=dev, generator=g)
+
+
+def spd_fused_form(a, b):
+    """The reference kernel's elimination step as it is written
+    (``oryx_tpu/ops/pallas_kernels.py:111-112``): subtracting
+    (fac − e_j) ⊗ piv_row from every row, which leaves row j as
+    aug_j − (piv − 1)·aug_j/piv. Only its float64 error is reported, beside
+    the plain version's; nothing is held to it."""
+    k = b.shape[-1]
+    aug = torch.cat([a, b[..., None]], dim=-1)
+    rows = torch.arange(k, device=a.device)
+    for j in range(k):
+        piv_row = aug[:, j:j + 1, :] / aug[:, j:j + 1, j:j + 1]
+        fac = aug[:, :, j:j + 1] - (rows == j).float()[None, :, None]
+        aug = aug - fac * piv_row
+    return aug[:, :, k]
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes per SPD kernel from ``ptxas -v``'s log:
+    ``warp<KP>`` for each warp-kernel template, ``cta`` for the CTA kernel."""
+    usage, kernel = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kp = re.search(r"spd_solve_warp_kernelILi(\d+)E", entry.group(1))
+            kernel = f"warp<{kp.group(1)}>" if kp else "cta"
+            usage[kernel] = {}
+        elif kernel and "bytes spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            usage[kernel]["spill_bytes"] = int(stores) + int(loads)
+        elif kernel and "Used" in line and "registers" in line:
+            usage[kernel]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
+def spd_ptxas_usage() -> dict:
+    """The ptxas usage of every SPD kernel, from the library's build log;
+    fails if any spills."""
+    usage = ptxas_usage(_build.build_log("spd_solve"))
+    check(len(usage) > 1 and all(u.get("spill_bytes") == 0 and u.get("registers")
+                                 for u in usage.values()),
+          f"spd_solve: ptxas reports spills or no usage: {usage}")
+    return usage
+
+
+def spd_cta_entry():
+    """The library's ``oryx_spd_solve_cta``, the CTA kernel at any k, bound
+    with ``oryx_spd_solve``'s signature: only this script calls it, to time
+    the CTA kernel beside the warp kernel on the same systems."""
+    fn = _build.library("spd_solve").oryx_spd_solve_cta
+    fn.argtypes, fn.restype = K._SIGNATURES["oryx_spd_solve"]
+    return fn
+
+
+def bare_launch(fn, a, b):
+    """A no-argument launch of ``fn``, an ``oryx_spd_solve`` entry, on (a, b)
+    into a preallocated x, with the pointers taken once. The warp and the
+    CTA kernel are timed through it at the same small host cost per call;
+    the wrapper's own checks cost more host time than the warp kernel takes
+    at k <= 32."""
+    x = torch.empty_like(b)
+    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0], b.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        check(err == 0, f"oryx_spd_solve: CUDA error {err}")
+        return x
+
+    return launch
+
+
+def spd_entry(big_a, big_b, label, cta_fn):
+    """The SPD kernel on (A, b) against its plain version, timed beside the
+    plain version, ``torch.linalg.solve``, a Cholesky solve and, for k <= 64,
+    the CTA kernel on the same systems (both kernels by bare launches; the
+    wrapper call is timed too). Both are also held against a float64 solve
+    (reported, not checked), and so is the reference's fused step."""
+    n, k = big_b.shape
     x = K.spd_solve_batched(big_a, big_b)
     px = K.spd_solve_batched_plain(big_a, big_b)
+    fx = spd_fused_form(big_a, big_b)
+    exact = torch.linalg.solve(big_a.double(), big_b.double())
     torch.cuda.synchronize()
     abs_err = float((x - px).abs().max())
     rel_err = abs_err / float(px.abs().max())
+    f64_err = {name: float((v.double() - exact).abs().max() / exact.abs().max())
+               for name, v in (("kernel", x), ("plain", px),
+                               ("reference_fused_step", fx))}
     tol = 1e-4
-    check(torch.isfinite(x).all(), "spd_solve: non-finite output")
-    check(rel_err < tol, f"spd_solve: rel err {rel_err} >= {tol}")
-    ms = time_ms(lambda: K.spd_solve_batched(big_a, big_b))
+    check(torch.isfinite(x).all(), f"spd_solve {label}: non-finite output")
+    check(rel_err < tol, f"spd_solve {label}: rel err {rel_err} >= {tol}")
+    ms = time_ms(bare_launch(K._spd_solve_entry(), big_a, big_b),
+                 inner=SPD_INNER)
+    wrapper_ms = time_ms(lambda: K.spd_solve_batched(big_a, big_b),
+                         inner=SPD_INNER)
     plain_ms = time_ms(lambda: K.spd_solve_batched_plain(big_a, big_b), reps=5,
                        warmup=1)
     rhs = big_b[..., None]
-    library_ms = time_ms(lambda: torch.linalg.solve(big_a, rhs))
-    cholesky_ms = time_ms(lambda: K.spd_solve_cholesky(big_a, big_b))
-    n, k = big_b.shape
+    library_ms = time_ms(lambda: torch.linalg.solve(big_a, rhs),
+                         inner=SPD_INNER)
+    cholesky_ms = time_ms(lambda: K.spd_solve_cholesky(big_a, big_b),
+                          inner=SPD_INNER)
+    variant = K.spd_variant(k)
+    cta_ms = (time_ms(bare_launch(cta_fn, big_a, big_b), inner=SPD_INNER)
+              if variant == "warp" else ms)
     nbytes = n * (k * k + 2 * k) * 4
     flops = n * (k ** 3 / 3.0 + 2.0 * k * k)  # Cholesky factor + 2 solves
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     return {
-        "name": "spd_solve_batched[user,float32]",
+        "name": f"spd_solve_batched[{label}]",
         "route": "cuda", "source": SPD_SOURCE, "replaces": SPD_REPLACES,
-        "wrapper": "spd_solve_batched",
+        "launch_key": launch_key(f"spd_solve_batched.{variant}", (n, k)),
+        "variant": variant,
         "shape": {"batch": n, "k": k},
         "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "rel_err_vs_float64": f64_err,
+        "ms": ms, "kernel_ms": ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "library": "torch.linalg.solve", "cholesky_ms": cholesky_ms,
+        "cta_ms": cta_ms,
     }
+
+
+def spd_crossover(dev, cta_fn) -> dict:
+    """The warp and the CTA kernel on the same 7,692 seeded systems at each
+    k around the warp kernel's crossover, both by bare launches."""
+    out = {}
+    for k in (1, 10, 16, 17, 32, 33, 50, 64, 65):
+        a, b = spd_synthetic(dev, SPD_SYNTHETIC_SYSTEMS, k, SEED + 100 + k)
+        launch = bare_launch(K._spd_solve_entry(), a, b)
+        cta = bare_launch(cta_fn, a, b)
+        x, cx = launch(), cta()
+        torch.cuda.synchronize()
+        out[f"k={k}"] = {
+            "variant": K.spd_variant(k),
+            "rel_diff": float((x - cx).abs().max() / cx.abs().max()),
+            "ms": time_ms(launch, inner=SPD_INNER),
+            "cta_ms": time_ms(cta, inner=SPD_INNER),
+        }
+    return out
 
 
 # -- profile ----------------------------------------------------------------
@@ -507,9 +670,45 @@ def blob_points(rng: np.random.Generator, means: np.ndarray, n: int):
             + rng.standard_normal((n, means.shape[1]), dtype=np.float32))
 
 
+def sweep_timing(points, weights, centers) -> dict:
+    """The sweep kernel timed beside its plain version, the cross term's
+    ``torch.matmul`` and the card's bound for (N, D, K)."""
+    n, d = points.shape
+    k = centers.shape[0]
+    args = (points, weights, centers)
+    nbytes = (n * d + n + k * d  # points, weights, centres
+              + k * d + k + 1) * 4  # sums, counts, cost written
+    flops = 2.0 * n * k * d + 2.0 * n * d
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    return {
+        "kernel_ms": time_ms(lambda: K.kmeans_assign_accumulate(*args)),
+        "plain_ms": time_ms(lambda: K.kmeans_assign_accumulate_plain(*args),
+                            reps=5, warmup=1),
+        "cross_term_matmul_ms": time_ms(lambda: points @ centers.T),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def sweep_entry(label, case, timing) -> dict:
+    """A kernels-line entry for the sweep at one shape."""
+    return {
+        "name": f"kmeans_assign_accumulate[{label}]",
+        "route": "cuda", "source": KM_SOURCE, "replaces": KM_REPLACES,
+        "launch_key": launch_key("kmeans_assign_accumulate",
+                                 (case["n"], case["d"], case["k"])),
+        "shape": {"n": case["n"], "d": case["d"], "k": case["k"],
+                  "dtype": "float32"},
+        "max_abs_err": case["max_abs_err"], "max_rel_err": case["max_rel_err"],
+        "tol": 1e-4, "cost_rel_err": case["cost_rel_err"], "cost_tol": 1e-5,
+        "count_l1": case["count_l1"],
+        "ms": timing["kernel_ms"], **timing, "library_ms": None,
+    }
+
+
 def kmeans_kernel_phase(dev, rng):
-    """The sweep kernel in its three cases; the first timed. Returns the
-    phase's record, the kernels-line entry, and the 1M × 64 points."""
+    """The sweep kernel in its four cases; the 1M × 64 case and the update
+    path's 100k × 64 case timed. Returns the phase's record, the
+    kernels-line entries (100k, then 1M) and the 1M × 64 points."""
     pts = torch.from_numpy(
         rng.standard_normal((KM_N, KM_D), dtype=np.float32)).to(dev)
     ones = torch.ones(KM_N, device=dev)
@@ -517,20 +716,18 @@ def kmeans_kernel_phase(dev, rng):
         rng.standard_normal((KM_K, KM_D), dtype=np.float32)).to(dev)
     cases = [sweep_check(pts, ones, centers, True, "1M x 64, K=256, normal")]
     args = (pts, ones, centers)
-    kernel_ms = time_ms(lambda: K.kmeans_assign_accumulate(*args))
-    plain_ms = time_ms(lambda: K.kmeans_assign_accumulate_plain(*args),
-                       reps=5, warmup=1)
-    cross_ms = time_ms(lambda: pts @ centers.T)
-    nbytes = (KM_N * KM_D + KM_N + KM_K * KM_D  # points, weights, centres
-              + KM_K * KM_D + KM_K + 1) * 4  # sums, counts, cost written
-    flops = 2.0 * KM_N * KM_K * KM_D + 2.0 * KM_N * KM_D
-    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    timing = sweep_timing(*args)
 
     means = blob_means(rng)
     blobs = torch.from_numpy(blob_points(rng, means, KM_BLOB_POINTS)).to(dev)
+    blob_centers = torch.from_numpy(means).to(dev)
     cases.append(sweep_check(blobs, torch.ones(KM_BLOB_POINTS, device=dev),
-                             torch.from_numpy(means).to(dev), False,
-                             "200k planted blobs, K=256"))
+                             blob_centers, False, "200k planted blobs, K=256"))
+    # the update path's shape: build_model's sweeps run on 100k lines
+    update_args = (blobs[:KM_LINES].contiguous(),
+                   torch.ones(KM_LINES, device=dev), blob_centers)
+    cases.append(sweep_check(*update_args, False, "100k planted blobs, K=256"))
+    update_timing = sweep_timing(*update_args)
     wide_means = rng.uniform(-10.0, 10.0, (1024, 128)).astype(np.float32)
     wide = torch.from_numpy(blob_points(rng, wide_means, 50_000)).to(dev)
     wide_args = (wide, torch.ones(50_000, device=dev),
@@ -538,24 +735,11 @@ def kmeans_kernel_phase(dev, rng):
     cases.append(sweep_check(*wide_args, False, "50k blobs, K=1024, D=128"))
     wide_ms = time_ms(lambda: K.kmeans_assign_accumulate(*wide_args), reps=5)
     sweep_profile = device_profile(lambda: K.kmeans_assign_accumulate(*args))
-    first = cases[0]
-    entry = {
-        "name": "kmeans_assign_accumulate[1M x 64, K=256]",
-        "route": "cuda", "source": KM_SOURCE, "replaces": KM_REPLACES,
-        "wrapper": "kmeans_assign_accumulate",
-        "shape": {"n": KM_N, "d": KM_D, "k": KM_K, "dtype": "float32"},
-        "max_abs_err": first["max_abs_err"], "max_rel_err": first["max_rel_err"],
-        "tol": 1e-4, "cost_rel_err": first["cost_rel_err"], "cost_tol": 1e-5,
-        "count_l1": first["count_l1"],
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "cross_term_matmul_ms": cross_ms,
-    }
-    record = {"cases": cases, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "cross_term_matmul_ms": cross_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "wide_kernel_ms": wide_ms,
-              "sweep_profile": sweep_profile}
-    return record, entry, pts
+    entries = [sweep_entry("100k x 64, K=256, update", cases[2], update_timing),
+               sweep_entry("1M x 64, K=256", cases[0], timing)]
+    record = {"cases": cases, **timing, "update_shape": update_timing,
+              "wide_kernel_ms": wide_ms, "sweep_profile": sweep_profile}
+    return record, entries, pts
 
 
 def csv_lines(points: np.ndarray) -> list:
@@ -595,6 +779,7 @@ def kmeans_update_phase(dev, rng) -> dict:
         scores[strategy] = scorers[strategy].evaluate(None, pmml, None, [], train)
         timing[f"evaluate_{strategy.lower()}_s"] = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    by_shape = shape_launches()
 
     expected = runs * (iterations + 1)
     check(launches["kmeans_assign_accumulate"] == expected,
@@ -651,6 +836,7 @@ def kmeans_update_phase(dev, rng) -> dict:
           "kmeans speed: counts do not add up")
     return {"lines": KM_LINES, "features": KM_D, "k": k, "runs": runs,
             "iterations": iterations, "launches": launches,
+            "shape_launches": by_shape,
             "scores": scores, "sse_vs_sweep_cost_rel": sse_rel,
             "updates": len(ups), **timing}
 
@@ -672,7 +858,8 @@ def kmeans_train_phase(points) -> dict:
               f"kmeans_train: {launches} sweep launches")
         check(np.isfinite(centers).all() and counts.sum() == KM_N,
               "kmeans_train: bad centres or counts")
-        out[call] = {"seconds": seconds, "launches": launches, **timings}
+        out[call] = {"seconds": seconds, "launches": launches,
+                     "shape_launches": shape_launches(), **timings}
     timed = out["timed"]
     out["point_iters_per_s"] = KM_N * KM_ITERATIONS / timed["seconds"]
     out["sweep_point_iters_per_s"] = KM_N * KM_ITERATIONS / timed["sweeps_s"]
@@ -694,7 +881,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    emit("build", seconds=time.perf_counter() - t0, built=built)
+    emit("build", seconds=time.perf_counter() - t0, built=built,
+         spd_ptxas=spd_ptxas_usage())
+    cta_fn = spd_cta_entry()
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -714,6 +903,10 @@ def main() -> int:
                                    FEATURES, g, dev)
     y_users = tr.init_item_factors(user_side.padded_rows, len(batch.users),
                                    FEATURES, g, dev)
+    # each entry's launches expected on the main path: one per row block
+    # per iteration at its side's shape; the trainer computes in float32,
+    # so the bfloat16 gather-Gramian and the synthetic SPD systems are on
+    # no path
     entries = []
     for side, opp, label in ((user_side, y_items, "user"),
                              (item_side, y_users, "item")):
@@ -721,7 +914,20 @@ def main() -> int:
             dname = "float32" if dtype == torch.float32 else "bfloat16"
             entries.append(gg_entry(side, opp, dtype,
                                     f"{label},T={side.slot_width},{dname}"))
-    entries.append(spd_entry(user_side, y_items))
+            entries[-1]["expected_launches"] = (
+                side.n_blocks * ITERATIONS if dtype == torch.float32 else 0)
+    for side, opp, label in ((user_side, y_items, "user"),
+                             (item_side, y_users, "item")):
+        entries.append(spd_entry(*spd_blocks(side, opp),
+                                 f"{label},k={FEATURES}", cta_fn))
+        entries[-1]["expected_launches"] = side.n_blocks * ITERATIONS
+    for k in SPD_SYNTHETIC_K:
+        entries.append(spd_entry(
+            *spd_synthetic(dev, SPD_SYNTHETIC_SYSTEMS, k, SEED + k),
+            f"synthetic,k={k}", cta_fn))
+        entries[-1]["expected_launches"] = 0
+    torch.cuda.empty_cache()
+    emit("spd_crossover", **spd_crossover(dev, cta_fn))
     emit("kernels_checked", n=len(entries))
 
     # the main path: train, then serve the trained model
@@ -754,27 +960,47 @@ def main() -> int:
          auc=auc, auc_s=auc_s)
     serve = serve_trained(batch, x, y, rng)
     launches = dict(K.LAUNCHES)
-    emit("serve", **serve, launches=launches)
+    als_shape_launches = shape_launches()
+    emit("serve", **serve, launches=launches,
+         shape_launches=als_shape_launches)
     for wrapper in ALS_WRAPPERS:
         n = launches[wrapper]
         check(n == expected, f"{wrapper}: {n} launches on the main path, "
               f"expected {expected} ({blocks} blocks x {ITERATIONS} iterations)")
+    kernel = f"spd_solve_batched.{K.spd_variant(FEATURES)}"
+    n = sum(c for key, c in K.SHAPE_LAUNCHES.items() if key[0] == kernel)
+    check(n == expected, f"spd_solve_batched: {n} launches of {kernel} on the "
+          f"main path, expected {expected}: {als_shape_launches}")
 
     emit("profile", **profile_iteration(user_side, item_side, y))
     emit("serve_flagship", **serve_flagship(rng))
 
-    record, km_entry, km_points = kmeans_kernel_phase(dev, rng)
+    record, km_entries, km_points = kmeans_kernel_phase(dev, rng)
     emit("kmeans_kernel", **record)
     km_update = kmeans_update_phase(dev, rng)
     emit("kmeans_update", **km_update)
-    emit("kmeans_train", **kmeans_train_phase(km_points))
+    km_train = kmeans_train_phase(km_points)
+    emit("kmeans_train", **km_train)
 
-    for e in entries:  # ALS launches from the ALS path, k-means from its own
-        e["launches"] = launches[e.pop("wrapper")]
-    km_entry["launches"] = km_update["launches"][km_entry.pop("wrapper")]
-    entries.append(km_entry)
-    for e in entries:
-        check(e["launches"] > 0, f"{e['name']}: not launched on its path")
+    # each entry's launches at its shape, from the run of the path that
+    # reaches it: the ALS run above, build_model (100k x 64), kmeans_train's
+    # timed call (1M x 64)
+    km_update_entry, km_train_entry = km_entries
+    km_update_entry["expected_launches"] = km_update["launches"][
+        "kmeans_assign_accumulate"]
+    km_train_entry["expected_launches"] = KM_ITERATIONS + 1
+    for e, counts in ([(e, als_shape_launches) for e in entries]
+                      + [(km_update_entry, km_update["shape_launches"]),
+                         (km_train_entry, km_train["timed"]["shape_launches"])]):
+        e["launches"] = counts.get(e.pop("launch_key"), 0)
+        e["on_main_path"] = e["launches"] > 0
+        want = e.pop("expected_launches")
+        check(e["launches"] == want, f"{e['name']}: {e['launches']} launches "
+              f"at its shape on its path, expected {want}")
+    entries.extend(km_entries)
+    for source in {e["source"] for e in entries}:
+        check(any(e["on_main_path"] for e in entries if e["source"] == source),
+              f"{source}: not launched on its path")
     print(json.dumps({"kernels": entries, "gpu": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for ``sm_90a``,
 into its own shared library under ``build/`` at the checkout's root (listed
 in ``.gitignore``), and is bound with ``ctypes`` through a plain C
 interface: no PyTorch headers, so a build takes seconds, not minutes. The
-library's file name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded. Only sources in the checkout are
-used; a failed build raises.
+library's file name carries a hash of its source and flags, so an edited
+kernel is rebuilt and a stale one is never loaded. Only sources in the checkout are
+used; a failed build raises. ``nvcc``'s log, with ``ptxas``'s registers and
+spill bytes per kernel, is kept beside the library (:func:`build_log`).
 
 :func:`build_all` starts one ``nvcc`` per source at once, so the whole build
 takes as long as the slowest file.
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("gather_gramian", "spd_solve", "kmeans_assign")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -67,6 +69,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -85,6 +88,11 @@ def build_all(names=SOURCES) -> list[str]:
                     proc.kill()
                     proc.wait()
     return pending
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output from building kernel ``name``'s library."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -4,7 +4,8 @@ version.
 * :func:`gather_gramian_accumulate` (``csrc/gather_gramian.cu``) replaces
   the reference's Pallas ``_make_gather_gramian_kernel``
   (``oryx_tpu/ops/pallas_kernels.py:221-289``);
-* :func:`spd_solve_batched` (``csrc/spd_solve.cu``) replaces
+* :func:`spd_solve_batched` (``csrc/spd_solve.cu``: a warp per system for
+  k <= 64, a CTA per system up to k = 240, :func:`spd_variant`) replaces
   ``_spd_solve_kernel`` (``pallas_kernels.py:89-116``);
 * :func:`kmeans_assign_accumulate` (``csrc/kmeans_assign.cu``), one Lloyd
   sweep of k-means, replaces ``_kernel`` (``pallas_kernels.py:357-388``).
@@ -13,8 +14,9 @@ Dispatch is by the tensors' device and nothing else: a CPU tensor goes to
 the plain version (that is how the CPU tests run the trainer); a CUDA
 tensor goes to the kernel, or the wrapper raises. Nothing falls back from a
 failed kernel to the plain version. Each kernel launch adds one to its
-entry in :data:`LAUNCHES`, so a run can show that it went through the
-kernels; the plain versions count nothing.
+entry in :data:`LAUNCHES` and in :data:`SHAPE_LAUNCHES`, so a run can show
+that it went through the kernels, and at which shapes; the plain versions
+count nothing.
 
 Kernels launch on PyTorch's current stream and allocate nothing: the
 wrappers allocate the outputs. They are built on first use
@@ -24,6 +26,7 @@ wrappers allocate the outputs. They are built on first use
 from __future__ import annotations
 
 import ctypes
+import functools
 import logging
 
 import torch
@@ -35,11 +38,25 @@ log = logging.getLogger(__name__)
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"gather_gramian_accumulate": 0, "spd_solve_batched": 0,
             "kmeans_assign_accumulate": 0}
+#: The same launches by kernel and shape, ``(kernel, shape) -> count``:
+#: ``kernel`` is the wrapper's name, for the SPD solve with the variant
+#: appended (``"spd_solve_batched.warp"``, ``".cta"``); ``shape`` is
+#: ``(block + 1, S, T, k, dtype)`` for the gather-Gramian (``dtype`` as
+#: ``str(y.dtype)``), ``(B, k)`` for the SPD solve and ``(N, D, K)`` for the
+#: sweep.
+SHAPE_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(name: str, shape: tuple, kernel: "str | None" = None) -> None:
+    LAUNCHES[name] += 1
+    key = (kernel or name, shape)
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 # The reference's gate (pallas_kernels._GG_MAX_FEATURES), kept as it is: the
@@ -47,10 +64,14 @@ def reset_launches() -> None:
 # where the reference does.
 GG_MAX_FEATURES = 256
 
-# Shared memory one block may use on an H100 (227 KB). The SPD kernel keeps
-# the augmented k x (k+1) matrix plus one k-vector there, 4·k·(k+2) bytes:
-# k <= 240 fits. Past that the solve is a Cholesky factorisation.
+# Shared memory one block may use on an H100 (227 KB). The SPD CTA kernel
+# keeps the augmented k x (k+1) matrix plus one k-vector there, 4·k·(k+2)
+# bytes: k <= 240 fits. Past that the solve is a Cholesky factorisation.
 SPD_SMEM_BYTES = 232_448
+# The largest k that ``oryx_spd_solve`` sends to its warp-per-system kernel
+# (``kWarpMaxK`` in ``csrc/spd_solve.cu``; the wrapper checks that the
+# library agrees before its first launch).
+SPD_WARP_MAX_FEATURES = 64
 
 _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
@@ -155,7 +176,7 @@ def gather_gramian_accumulate(y, srow, scols, w, coef, slens, *, block: int):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(name, err)
-    LAUNCHES[name] += 1
+    _count(name, (block + 1, s, t, k, str(y.dtype)))
     return a, b
 
 
@@ -192,16 +213,39 @@ def spd_use_kernel(k: int) -> bool:
     return 4 * k * (k + 2) <= SPD_SMEM_BYTES
 
 
+def spd_variant(k: int) -> str:
+    """Which solve :func:`spd_solve_batched` runs for k features on the card:
+    ``"warp"`` (a warp per system, registers), ``"cta"`` (a CTA per system,
+    shared memory) or ``"cholesky"``."""
+    if k <= SPD_WARP_MAX_FEATURES:
+        return "warp"
+    return "cta" if spd_use_kernel(k) else "cholesky"
+
+
+@functools.cache
+def _spd_solve_entry():
+    """``oryx_spd_solve``, once its library's crossover is found to be
+    :data:`SPD_WARP_MAX_FEATURES`: the variant counted is then the kernel
+    the entry launches."""
+    warp_max_k = _build.library("spd_solve").oryx_spd_warp_max_k()
+    if warp_max_k != SPD_WARP_MAX_FEATURES:
+        raise RuntimeError(f"spd_solve.cu sends k <= {warp_max_k} to its warp "
+                           f"kernel, kernels.py expects {SPD_WARP_MAX_FEATURES}")
+    return _entry("spd_solve", "oryx_spd_solve")
+
+
 def spd_solve_batched(a, b):
     """Solve ``a[i] @ x[i] = b[i]`` for a batch of regularised SPD systems.
 
     Args: a (B, k, k) float32, b (B, k) float32. Returns x (B, k) float32.
-    Gauss-Jordan without pivoting (the reference kernel's algorithm) for
-    ``spd_use_kernel(k)``; a Cholesky solve past that gate, on any device.
+    Gauss-Jordan without pivoting (the reference kernel's algorithm) in the
+    kernel :func:`spd_variant` names; a Cholesky solve past the CTA kernel's
+    gate, on any device.
     """
     name = "spd_solve_batched"
     n, k = b.shape
-    if not spd_use_kernel(k):
+    variant = spd_variant(k)
+    if variant == "cholesky":
         if k not in _cholesky_logged:
             _cholesky_logged.add(k)
             log.info("spd_solve_batched: k=%d exceeds the kernel's shared "
@@ -219,27 +263,30 @@ def spd_solve_batched(a, b):
     if n == 0:
         return x
     with torch.cuda.device(dev):
-        err = _entry("spd_solve", "oryx_spd_solve")(
+        err = _spd_solve_entry()(
             a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(name, err)
-    LAUNCHES[name] += 1
+    _count(name, (n, k), f"{name}.{variant}")
     return x
 
 
 def spd_solve_batched_plain(a, b):
-    """Plain PyTorch version of the SPD kernel: the same Gauss-Jordan steps
-    in the same order, over the whole batch at once."""
+    """Plain PyTorch version of the SPD kernels: the same Gauss-Jordan steps
+    in the same order, over the whole batch at once.
+
+    Row j is set to the normalised pivot row, as the kernels write it. (The
+    reference's fused form, subtracting (fac − e_j) ⊗ piv_row from every
+    row, gets row j as aug_j − (piv − 1)·aug_j/piv: a cancellation that
+    loses ~log2(piv) bits, more than the kernels' 1e-4 tolerance on an ALS
+    item block, whose popular items give pivots of 10^3 to 10^4.)"""
     k = b.shape[-1]
     aug = torch.cat([a.float(), b.float()[..., None]], dim=-1)
-    rows = torch.arange(k, device=aug.device)
     for j in range(k):
         piv_row = aug[:, j:j + 1, :] / aug[:, j:j + 1, j:j + 1]
-        # subtracting (fac − e_j) ⊗ piv_row eliminates column j from every
-        # row and leaves row j as the normalised pivot row
-        fac = aug[:, :, j:j + 1] - (rows == j).float()[None, :, None]
-        aug = aug - fac * piv_row
+        aug = aug - aug[:, :, j:j + 1] * piv_row
+        aug[:, j:j + 1, :] = piv_row
     return aug[:, :, k]
 
 
@@ -306,7 +353,7 @@ def kmeans_assign_accumulate(points, weights, centers):
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _raise_on(name, err)
-        LAUNCHES[name] += 1
+        _count(name, (n, d, k))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[-1]
 
 

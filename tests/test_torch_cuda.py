@@ -84,16 +84,85 @@ def test_gather_gramian_kernel_matches_plain(cuda_device, dtype):
     assert (b - pb).abs().max() / pb.abs().max() < 1e-5
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 50, 240])
-def test_spd_kernel_matches_plain(cuda_device, k):
-    """Relative 1e-4, the reference's tolerance for the same algorithm."""
-    a, rhs = _spd(np.random.default_rng(SEED + k), 33, k)
-    ta, tb = (torch.from_numpy(v).to(cuda_device) for v in (a, rhs))
-    before = K.LAUNCHES["spd_solve_batched"]
+def _solve_on_card(a, rhs, device, variant):
+    """One ``spd_solve_batched`` call on the card: the kernel ``variant``
+    launches once at the systems' shape (nothing for an empty batch);
+    returns (x, plain x)."""
+    ta, tb = (torch.from_numpy(v).to(device) for v in (a, rhs))
+    before = dict(K.SHAPE_LAUNCHES)
     x = K.spd_solve_batched(ta, tb)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["spd_solve_batched"] == before + 1
+    after = dict(before)
+    if len(rhs):
+        key = (f"spd_solve_batched.{variant}", rhs.shape)
+        after[key] = after.get(key, 0) + 1
+    assert K.SHAPE_LAUNCHES == after
+    return x, K.spd_solve_batched_plain(ta, tb)
+
+
+# k: each side of the warp kernel's boundaries (one row per lane up to 32,
+# two past it; the CTA kernel past 64), the widths in use (10, the
+# reference default; 50, the smoke's), and the CTA kernel up to its gate;
+# batch sizes 0, 1 and 33, which is not a multiple of the warp kernel's 2
+# warps per CTA
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16, 31, 32, 33, 50, 64, 65, 128, 240])
+@pytest.mark.parametrize("batch", [0, 1, 33])
+def test_spd_kernel_matches_plain(cuda_device, k, batch):
+    """Relative 1e-4, the reference's tolerance for the same algorithm."""
+    variant = "warp" if k <= 64 else "cta"
+    assert K.spd_variant(k) == variant
+    a, rhs = _spd(np.random.default_rng(SEED + 1000 * batch + k), batch, k)
+    x, ref = _solve_on_card(a, rhs, cuda_device, variant)
+    assert x.shape == (batch, k) and bool(torch.isfinite(x).all())
+    if batch:
+        assert (x - ref).abs().max() / ref.abs().max() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50, 128])
+def test_spd_kernel_reads_rows_as_stored(cuda_device, k):
+    """A non-symmetric, diagonally dominant A (no pivoting needed): the
+    kernels agree with the plain version, which reads A's rows, to relative
+    1e-4, and not with the solve of Aᵀ."""
+    rng = np.random.default_rng(SEED + k)
+    a = rng.uniform(-1.0, 1.0, (37, k, k)).astype(np.float32)
+    a += (2.0 * k * np.eye(k, dtype=np.float32)
+          * rng.uniform(1.0, 2.0, (37, k, 1)).astype(np.float32))
+    rhs = rng.standard_normal((37, k)).astype(np.float32)
+    x, ref = _solve_on_card(a, rhs, cuda_device, K.spd_variant(k))
+    assert (x - ref).abs().max() / ref.abs().max() < 1e-4
+    transposed = torch.linalg.solve(torch.from_numpy(a).transpose(1, 2),
+                                    torch.from_numpy(rhs))
+    assert (x.cpu() - transposed).abs().max() / transposed.abs().max() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50, 128])
+def test_spd_kernel_is_deterministic(cuda_device, k):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    a, rhs = _spd(np.random.default_rng(SEED + 7 * k), 257, k)
+    ta, tb = (torch.from_numpy(v).to(cuda_device) for v in (a, rhs))
+    assert torch.equal(K.spd_solve_batched(ta, tb), K.spd_solve_batched(ta, tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50])
+def test_spd_library_crossover_and_cta_entry(cuda_device, k):
+    """The library sends k <= ``SPD_WARP_MAX_FEATURES`` to its warp kernel;
+    its CTA entry, which only measurements call, solves the same systems
+    to relative 1e-4 of the plain version."""
+    from oryx_tpu_torch.ops import _build
+
+    lib = _build.library("spd_solve")
+    assert lib.oryx_spd_warp_max_k() == K.SPD_WARP_MAX_FEATURES
+    cta = lib.oryx_spd_solve_cta
+    cta.argtypes, cta.restype = K._SIGNATURES["oryx_spd_solve"]
+    a, rhs = _spd(np.random.default_rng(SEED + 3 * k), 65, k)
+    ta, tb = (torch.from_numpy(v).to(cuda_device) for v in (a, rhs))
+    x = torch.empty_like(tb)
+    assert cta(ta.data_ptr(), tb.data_ptr(), x.data_ptr(), 65, k,
+               torch.cuda.current_stream().cuda_stream) == 0
     ref = K.spd_solve_batched_plain(ta, tb)
     assert (x - ref).abs().max() / ref.abs().max() < 1e-4
 
@@ -114,6 +183,8 @@ def test_als_train_on_the_card_matches_the_cpu(cuda_device):
     x, y = tr.als_train(batch, k, 0.1, 1.0, True, 2, init_y=y0, block=256)
     assert K.LAUNCHES["gather_gramian_accumulate"] > 0
     assert K.LAUNCHES["spd_solve_batched"] > 0
+    assert {kernel for kernel, _ in K.SHAPE_LAUNCHES} == {
+        "gather_gramian_accumulate", "spd_solve_batched.warp"}
     cx, cy = tr.als_train(batch, k, 0.1, 1.0, True, 2, init_y=y0, block=256,
                           device="cpu", fused_gramian=True, spd_kernel=True)
     for got, ref in ((x.cpu(), cx), (y.cpu(), cy)):

@@ -10,6 +10,9 @@ against these plain versions on the card by ``tests/test_torch_cuda.py``.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -84,6 +87,33 @@ def test_spd_plain_matches_pallas(b, k):
         assert np.abs(x - ref).max() / np.abs(ref).max() < 1e-4
 
 
+@pytest.mark.parametrize("k", [10, 50])
+def test_spd_plain_holds_at_large_pivots(k):
+    """Pivots of 3·10^3 to 2·10^4, as an ALS item block's popular items give
+    them: the port's plain version, which writes the normalised pivot row,
+    stays within 1e-5 of a float64 solve; the reference's fused step, which
+    gets that row as aug_j − (piv − 1)·aug_j/piv, loses ~log2(piv) bits and
+    misses the kernels' 1e-4 tolerance (a fault of the reference, not
+    copied)."""
+    rng = np.random.default_rng(SEED + k)
+    m = rng.standard_normal((64, k, k)).astype(np.float32)
+    a = ((m @ m.transpose(0, 2, 1) / k
+          + np.eye(k, dtype=np.float32) * rng.uniform(1, 10, (64, k, 1)))
+         * 2e3).astype(np.float32)
+    rhs = (rng.standard_normal((64, k)) * 2e3).astype(np.float32)
+    exact = np.linalg.solve(a.astype(np.float64), rhs[..., None])[..., 0]
+
+    def rel_err(x):
+        x = np.asarray(x, dtype=np.float64)
+        return np.abs(x - exact).max() / np.abs(exact).max()
+
+    pivots = np.diagonal(a, axis1=1, axis2=2)
+    assert 1e3 < pivots.min() and pivots.max() < 1e5
+    x = K.spd_solve_batched(torch.from_numpy(a), torch.from_numpy(rhs))
+    assert rel_err(x.numpy()) < 1e-5
+    assert rel_err(pk.spd_solve_batched(a, rhs, interpret=True)) > 1e-4
+
+
 def test_spd_past_the_gate_solves_by_cholesky():
     """k = 241 is the first k whose augmented matrix does not fit the
     card's shared memory: the solve is a Cholesky one, on any device,
@@ -107,6 +137,23 @@ def test_gates_at_their_boundaries():
     assert K.spd_use_kernel(240)
     assert not K.spd_use_kernel(241)
     assert 4 * 240 * 241 <= K.SPD_SMEM_BYTES < 4 * 241 * 242
+
+
+@pytest.mark.parametrize("k,variant", [(1, "warp"), (64, "warp"), (65, "cta"),
+                                       (240, "cta"), (241, "cholesky")])
+def test_spd_variant_at_its_boundaries(k, variant):
+    """The warp kernel up to k = 64 (registers), the CTA kernel up to the
+    shared-memory gate, Cholesky past it."""
+    assert K.spd_variant(k) == variant
+    assert K.spd_use_kernel(k) == (variant != "cholesky")
+
+
+def test_spd_warp_crossover_matches_the_source():
+    """``SPD_WARP_MAX_FEATURES`` is the crossover the CUDA source builds in
+    (the wrapper also checks the built library before its first launch)."""
+    source = (Path(K.__file__).parent / "csrc" / "spd_solve.cu").read_text()
+    found = re.findall(r"constexpr int kWarpMaxK = (\d+);", source)
+    assert found == [str(K.SPD_WARP_MAX_FEATURES)]
 
 
 def test_unsupported_device_raises():
