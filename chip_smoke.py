@@ -23,11 +23,16 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            the first packed block of each side of that data (k = 50;
            gather-Gramian in float32 and bfloat16), timed with CUDA events
            beside the plain version, a one-call library equivalent where
-           one exists, and the card's bound for the same work; the SPD
-           solve also on 7,692 seeded systems at k = 10 (the reference's
-           default; warp kernel) and k = 128 (CTA kernel), and each k <= 64
-           beside the CTA kernel on the same systems (both SPD kernels
-           timed by bare launches of their C entries, the wrapper apart;
+           one exists, and the card's bound for the same work; the
+           gather-Gramian also with its work-unit schedule reported (units,
+           split rows, largest unit, workspace bytes), called twice for
+           the same bits, timed by bare launches and through its wrapper,
+           and beside a ``torch.bmm`` of the pre-gathered slab (per-slot
+           products only); the SPD solve also on 7,692 seeded systems at
+           k = 10 (the reference's default; warp kernel) and k = 128 (CTA
+           kernel), and each k <= 64 beside the CTA kernel on the same
+           systems (both SPD kernels timed by bare launches of their C
+           entries, the wrapper apart;
            the reference's fused elimination step's float64 error is
            reported beside the plain version's);
   spd_crossover
@@ -37,13 +42,16 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            3 iterations, float32) with the launch counters set to 0 just
            before; both kernels must have launched once per row block per
            iteration, at each side's block shape, the SPD solve in its warp
-           kernel; factors finite; hold-out AUC > 0.75;
+           kernel, and the gather-Gramian's reduce once per iteration for
+           each block whose schedule has a split row; factors finite;
+           hold-out AUC > 0.75;
   serve    the trained model loaded into ``ALSServingModel``: 256 users'
            ``top_n_batch(how_many=10)`` excluding their training items,
            checked against an exact float64 scan (overlap >= 0.99); the
            counters are read after it;
-  profile  one more training iteration under ``torch.profiler`` (device
-           time by kernel, idle share);
+  profile  one more training iteration under ``torch.profiler``, with the
+           packed blocks' schedules as the trainer passes them (device time
+           by kernel, idle share);
   serve_flagship
            1,000,000 items × 50 features (seeded), ``top_n_batch`` timed
            at batch 1, 16 and 256, top-10, checked against an exact scan;
@@ -77,7 +85,8 @@ is its kernel's count at its shape in the run of the path that reaches it
 (``K.SHAPE_LAUNCHES``): the ALS train and serve run, ``build_model``'s run
 or ``kmeans_train``'s timed call; an entry at a shape no path runs (the
 bfloat16 gather-Gramian, the synthetic SPD systems) shows 0, with
-``on_main_path`` false. Any failed check raises: the script
+``on_main_path`` false; a gather-Gramian entry's ``reduce_launches`` is
+counted the same way. Any failed check raises: the script
 exits non-zero and prints no ``ok`` line. Without a CUDA card it exits 1
 at once.
 """
@@ -133,9 +142,10 @@ ALS_WRAPPERS = ("gather_gramian_accumulate", "spd_solve_batched")
 # synthetic SPD cases: the user block's system count at the reference's
 # default k = 10 (the warp kernel) and at k = 128 (the CTA kernel)
 SPD_SYNTHETIC_SYSTEMS, SPD_SYNTHETIC_K = 7_692, (10, 128)
-# SPD timings: calls per CUDA-event pair (the warp kernel at small k is
-# shorter than one call's host time)
-SPD_INNER = 20
+# kernel timings: calls per CUDA-event pair (the SPD warp kernel at small k
+# and the gather-Gramian on a user block are shorter than one wrapper
+# call's host time)
+INNER = 20
 
 # k-means: bench_batch.py's accelerator shape (1M × 64, K = 256, 8
 # iterations); the update path's data are planted Gaussian blobs (centres
@@ -255,16 +265,25 @@ def shape_launches() -> dict:
 
 def gg_entry(side, y, dtype, label):
     """The gather-Gramian kernel on block 0 of ``side`` against its plain
-    version."""
+    version: once building its own schedule, once given it (the same bits
+    from both), timed by bare launches and through the wrapper as the
+    trainer calls it (schedule given), beside the plain version and a
+    ``torch.bmm`` of the pre-gathered slab."""
     srow, scols, svals, slens = (side.srows[0], side.scols[0], side.svals[0],
                                  side.slens[0])
     t = scols.shape[-1]
     w, coef = tr._entry_weights(svals, slens, ALPHA, True, t)
     ys = y.to(dtype)
     args = (ys, srow, scols, w, coef, slens)
+    sched = K.gather_gramian_schedule(srow, slens, block=side.block,
+                                      slot_width=t)
     a, b = K.gather_gramian_accumulate(*args, block=side.block)
+    a2, b2 = K.gather_gramian_accumulate(*args, block=side.block,
+                                         schedule=sched)
     pa, pb = K.gather_gramian_accumulate_plain(*args, block=side.block)
     torch.cuda.synchronize()
+    check(torch.equal(a, a2) and torch.equal(b, b2),
+          f"gather_gramian {label}: two calls differ")
     abs_err = max(float((a - pa).abs().max()), float((b - pb).abs().max()))
     rel_err = max(float((a - pa).abs().max() / pa.abs().max()),
                   float((b - pb).abs().max() / pb.abs().max()))
@@ -274,10 +293,25 @@ def gg_entry(side, y, dtype, label):
     check(torch.isfinite(a).all() and torch.isfinite(b).all(),
           f"gather_gramian {label}: non-finite output")
     check(rel_err < tol, f"gather_gramian {label}: rel err {rel_err} >= {tol}")
-    ms = time_ms(lambda: K.gather_gramian_accumulate(*args, block=side.block))
+    launch = gg_bare_launch(args, side.block, sched)
+    ba, bb = launch()
+    torch.cuda.synchronize()
+    check(torch.equal(a, ba) and torch.equal(b, bb),
+          f"gather_gramian {label}: the bare launch differs from the wrapper")
+    ms = time_ms(launch, inner=INNER)
+    # one wrapper call per event pair, the host's Python included: how
+    # the kernel was timed before it took a schedule
+    wrapper_ms = time_ms(lambda: K.gather_gramian_accumulate(
+        *args, block=side.block, schedule=sched))
     plain_ms = time_ms(
         lambda: K.gather_gramian_accumulate_plain(*args, block=side.block),
         reps=10)
+    # the yardstick: the per-slot products alone as one batched product,
+    # gather and weighting done before, the per-row sums not done
+    yg = ys[scols.long()]
+    lhs = (yg * w.to(ys.dtype)[..., None]).transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.bmm(lhs, yg))
+    del yg, lhs
     valid = torch.arange(t, device=slens.device)[None, :] < slens[:, None]
     n_valid = int(valid.sum())
     rows_read = int(torch.unique(scols[valid]).numel())
@@ -286,19 +320,58 @@ def gg_entry(side, y, dtype, label):
     nbytes = (rows_read * k * ys.element_size()  # gathered factor rows
               + s * t * (4 + 4 + 4) + s * (4 + 4)  # scols, w, coef; srow, slens
               + (side.block + 1) * k * (k + 1) * 4)  # A and b written
-    flops = n_valid * (2.0 * k * k + 2.0 * k)
+    # A is symmetric: k(k+1)/2 multiply-adds per entry for A, k for b
+    flops = n_valid * (k * (k + 1) + 2.0 * k)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
+    shape = (side.block + 1, s, t, k, str(ys.dtype))
     return {
         "name": f"gather_gramian_accumulate[{label}]",
         "route": "cuda", "source": GG_SOURCE, "replaces": GG_REPLACES,
-        "launch_key": launch_key("gather_gramian_accumulate",
-                                 (side.block + 1, s, t, k, str(ys.dtype))),
+        "launch_key": launch_key("gather_gramian_accumulate", shape),
+        "reduce_launch_key": launch_key("gather_gramian_accumulate.reduce",
+                                        shape),
         "shape": {"block": side.block, "slots": s, "T": t, "k": k,
                   "valid_entries": n_valid, "dtype": str(dtype)},
+        "schedule": {"units": sched.units, "split_rows": sched.split_rows,
+                     "split_units": sched.split_units,
+                     "unit_entries": sched.unit_entries,
+                     "max_entries_per_unit": sched.max_entries_per_unit,
+                     "workspace_bytes": sched.workspace_bytes(k)},
         "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bitwise_repeat": True,
+        "ms": ms, "kernel_ms": ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "library": "torch.bmm of the pre-gathered, weighted (S, k, T) x "
+                   "(S, T, k) slab: the per-slot products only, gather and "
+                   "per-row accumulation outside the timed call",
     }
+
+
+def gg_bare_launch(args, block, sched):
+    """A no-argument launch of ``oryx_gather_gramian`` (both passes) on the
+    wrapper's arguments into preallocated outputs, with the pointers taken
+    once: the kernel timed apart from the wrapper's host cost, as the SPD
+    kernels are."""
+    ys, _, scols, w, coef, slens = args
+    t, k = scols.shape[1], ys.shape[1]
+    a = torch.empty((block + 1, k, k), device=ys.device)
+    b = torch.empty((block + 1, k), device=ys.device)
+    ws = torch.empty((max(sched.split_units, 1), k * k + k), device=ys.device)
+    fn = K._entry("gather_gramian", "oryx_gather_gramian")
+    cargs = (ys.data_ptr(), int(ys.dtype == torch.bfloat16),
+             sched.work.data_ptr(), sched.work.shape[0],
+             sched.split.data_ptr(), sched.split_rows, scols.data_ptr(),
+             w.data_ptr(), coef.data_ptr(), slens.data_ptr(), ws.data_ptr(),
+             a.data_ptr(), b.data_ptr(), t, k,
+             torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*cargs)
+        check(err == 0, f"oryx_gather_gramian: CUDA error {err}")
+        return a, b
+
+    return launch
 
 
 def spd_blocks(side, y):
@@ -308,7 +381,7 @@ def spd_blocks(side, y):
         y, side.srows[0], side.scols[0], side.svals[0], side.slens[0],
         block=side.block, features=FEATURES, lam=LAM, alpha=ALPHA,
         implicit=True, slot_chunk=side.slot_chunk, yty=yty,
-        fused_gramian=True,
+        fused_gramian=True, schedule=side.gg_schedules[0],
     )
     return big_a.contiguous(), big_b.contiguous()
 
@@ -414,18 +487,18 @@ def spd_entry(big_a, big_b, label, cta_fn):
     check(torch.isfinite(x).all(), f"spd_solve {label}: non-finite output")
     check(rel_err < tol, f"spd_solve {label}: rel err {rel_err} >= {tol}")
     ms = time_ms(bare_launch(K._spd_solve_entry(), big_a, big_b),
-                 inner=SPD_INNER)
+                 inner=INNER)
     wrapper_ms = time_ms(lambda: K.spd_solve_batched(big_a, big_b),
-                         inner=SPD_INNER)
+                         inner=INNER)
     plain_ms = time_ms(lambda: K.spd_solve_batched_plain(big_a, big_b), reps=5,
                        warmup=1)
     rhs = big_b[..., None]
     library_ms = time_ms(lambda: torch.linalg.solve(big_a, rhs),
-                         inner=SPD_INNER)
+                         inner=INNER)
     cholesky_ms = time_ms(lambda: K.spd_solve_cholesky(big_a, big_b),
-                          inner=SPD_INNER)
+                          inner=INNER)
     variant = K.spd_variant(k)
-    cta_ms = (time_ms(bare_launch(cta_fn, big_a, big_b), inner=SPD_INNER)
+    cta_ms = (time_ms(bare_launch(cta_fn, big_a, big_b), inner=INNER)
               if variant == "warp" else ms)
     nbytes = n * (k * k + 2 * k) * 4
     flops = n * (k ** 3 / 3.0 + 2.0 * k * k)  # Cholesky factor + 2 solves
@@ -459,8 +532,8 @@ def spd_crossover(dev, cta_fn) -> dict:
         out[f"k={k}"] = {
             "variant": K.spd_variant(k),
             "rel_diff": float((x - cx).abs().max() / cx.abs().max()),
-            "ms": time_ms(launch, inner=SPD_INNER),
-            "cta_ms": time_ms(cta, inner=SPD_INNER),
+            "ms": time_ms(launch, inner=INNER),
+            "cta_ms": time_ms(cta, inner=INNER),
         }
     return out
 
@@ -487,7 +560,7 @@ def profile_iteration(user_side, item_side, y):
         return tr.solve_side_blocked(
             opp, side.srows, side.scols, side.svals, side.slens, LAM, ALPHA,
             block=side.block, features=FEATURES, implicit=True,
-            slot_chunk=side.slot_chunk,
+            slot_chunk=side.slot_chunk, schedules=side.gg_schedules,
         )
 
     return device_profile(lambda: half(item_side, half(user_side, yp)))
@@ -531,7 +604,7 @@ def device_profile(fn) -> dict:
     if not spans:
         return {"device_time": "not measured", "wall_ms": wall_us / 1e3}
     busy_us = _interval_union_us(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     return {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": max(0.0, 1.0 - busy_us / wall_us),
@@ -914,8 +987,13 @@ def main() -> int:
             dname = "float32" if dtype == torch.float32 else "bfloat16"
             entries.append(gg_entry(side, opp, dtype,
                                     f"{label},T={side.slot_width},{dname}"))
+            on_path = dtype == torch.float32
             entries[-1]["expected_launches"] = (
-                side.n_blocks * ITERATIONS if dtype == torch.float32 else 0)
+                side.n_blocks * ITERATIONS if on_path else 0)
+            # a reduce launch per call on a block whose schedule has a
+            # split row
+            entries[-1]["expected_reduce_launches"] = ITERATIONS * sum(
+                1 for sc in side.gg_schedules if sc.split_rows) if on_path else 0
     for side, opp, label in ((user_side, y_items, "user"),
                              (item_side, y_users, "item")):
         entries.append(spd_entry(*spd_blocks(side, opp),
@@ -997,6 +1075,12 @@ def main() -> int:
         want = e.pop("expected_launches")
         check(e["launches"] == want, f"{e['name']}: {e['launches']} launches "
               f"at its shape on its path, expected {want}")
+        if "reduce_launch_key" in e:
+            e["reduce_launches"] = counts.get(e.pop("reduce_launch_key"), 0)
+            want = e.pop("expected_reduce_launches")
+            check(e["reduce_launches"] == want,
+                  f"{e['name']}: {e['reduce_launches']} reduce launches at "
+                  f"its shape on its path, expected {want}")
     entries.extend(km_entries)
     for source in {e["source"] for e in entries}:
         check(any(e["on_main_path"] for e in entries if e["source"] == source),

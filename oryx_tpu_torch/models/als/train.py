@@ -40,7 +40,9 @@ from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als.data import RatingBatch
 from oryx_tpu_torch.ops.kernels import (
+    GatherGramianSchedule,
     gather_gramian_accumulate,
+    gather_gramian_schedule,
     gather_gramian_supported,
     slot_gramians,
     spd_solve_batched,
@@ -82,6 +84,8 @@ class _BlockedSide:
     spill row (slot padding). Each block's slots are the contiguous
     row-sorted run of the global slot list that falls in its row range,
     right-padded to the uniform count S (a multiple of the slot chunk).
+    ``gg_schedules`` holds each block's gather-Gramian work units, built
+    with the pack because ``srows`` and ``slens`` never change.
     """
 
     srows: torch.Tensor  # (n_blocks, S) int32, pad = block
@@ -93,6 +97,7 @@ class _BlockedSide:
     n_blocks: int
     slot_width: int
     slot_chunk: int
+    gg_schedules: "list[GatherGramianSchedule]"
 
     @property
     def padded_rows(self) -> int:
@@ -248,9 +253,15 @@ def make_blocked_side(
 
             _chunked_scatter(scatter, len(r), n_workers)
             del eb, es, pos
+    schedules = [
+        gather_gramian_schedule(torch.from_numpy(srows[i]),
+                                torch.from_numpy(slens[i]), block=block,
+                                slot_width=t, device=dev)
+        for i in range(n_blocks)
+    ]
     return _BlockedSide(
         *(torch.from_numpy(a).to(dev) for a in (srows, scols, svals, slens)),
-        n_rows, block, n_blocks, t, slot_chunk,
+        n_rows, block, n_blocks, t, slot_chunk, schedules,
     )
 
 
@@ -271,7 +282,8 @@ def _entry_weights(svals, slens, alpha, implicit, t):
 
 
 def _normal_equations(y, srow, scols, svals, slens, *, block, features, lam,
-                      alpha, implicit, slot_chunk, yty, fused_gramian):
+                      alpha, implicit, slot_chunk, yty, fused_gramian,
+                      schedule):
     """One row block's regularised normal equations against fixed factors
     ``y`` (already in the compute dtype): ``(A (block, k, k), b (block, k),
     cnt (block,))`` with ALS-WR regularisation, ``YᵀY`` for implicit
@@ -279,7 +291,8 @@ def _normal_equations(y, srow, scols, svals, slens, *, block, features, lam,
     assembles them.
 
     ``fused_gramian`` routes the accumulation through
-    :func:`gather_gramian_accumulate` (the kernel on the card); otherwise the
+    :func:`gather_gramian_accumulate` (the kernel on the card, with the
+    block's ``schedule``); otherwise the
     block's slots are scanned in chunks of ``slot_chunk`` (einsum +
     ``index_add_``), bounding the transient to O(slot_chunk·T·k)."""
     k = features
@@ -289,7 +302,7 @@ def _normal_equations(y, srow, scols, svals, slens, *, block, features, lam,
     if fused_gramian:
         w, coef = _entry_weights(svals, slens, alpha, implicit, t)
         big_a, big_b = gather_gramian_accumulate(
-            y, srow, scols, w, coef, slens, block=block
+            y, srow, scols, w, coef, slens, block=block, schedule=schedule
         )
     else:
         big_a = torch.zeros((block + 1, k, k), device=dev, dtype=torch.float32)
@@ -320,13 +333,14 @@ def _normal_equations(y, srow, scols, svals, slens, *, block, features, lam,
 
 
 def _solve_block(y, srow, scols, svals, slens, *, block, features, lam, alpha,
-                 implicit, slot_chunk, yty, spd_kernel, fused_gramian):
+                 implicit, slot_chunk, yty, spd_kernel, fused_gramian,
+                 schedule):
     """Solve one row block's factors (block, k) against fixed ``y``; rows
     with no interactions get zero factors (reference: absent IDs)."""
     big_a, big_b, cnt = _normal_equations(
         y, srow, scols, svals, slens, block=block, features=features,
         lam=lam, alpha=alpha, implicit=implicit, slot_chunk=slot_chunk,
-        yty=yty, fused_gramian=fused_gramian,
+        yty=yty, fused_gramian=fused_gramian, schedule=schedule,
     )
     if spd_kernel:
         x = spd_solve_batched(big_a, big_b)
@@ -354,11 +368,14 @@ def _resolve_paths(y, features: int, spd_kernel, fused_gramian):
 
 
 def solve_side_blocked(y, srows, scols, svals, slens, lam, alpha, *, block,
-                       features, implicit, slot_chunk, dtype="float32",
-                       spd_kernel: "bool | None" = None,
+                       features, implicit, slot_chunk,
+                       schedules: "list[GatherGramianSchedule]",
+                       dtype="float32", spd_kernel: "bool | None" = None,
                        fused_gramian: "bool | None" = None):
     """One half-iteration on ``y``'s device: every row block in turn.
-    Returns the (n_blocks·block, k) float32 factors of this side."""
+    ``schedules`` are the blocks' gather-Gramian work units
+    (``_BlockedSide.gg_schedules``). Returns the (n_blocks·block, k)
+    float32 factors of this side."""
     spd, fused = _resolve_paths(y, features, spd_kernel, fused_gramian)
     cd = _DTYPES[dtype]
     yty = (y.T @ y) if implicit else None  # (k, k) Gramian, float32
@@ -368,7 +385,7 @@ def solve_side_blocked(y, srows, scols, svals, slens, lam, alpha, *, block,
             ys, srows[b], scols[b], svals[b], slens[b], block=block,
             features=features, lam=lam, alpha=alpha, implicit=implicit,
             slot_chunk=slot_chunk, yty=yty, spd_kernel=spd,
-            fused_gramian=fused,
+            fused_gramian=fused, schedule=schedules[b],
         )
         for b in range(srows.shape[0])
     ]
@@ -554,6 +571,7 @@ def als_train(
                 alpha, block=side.block, features=k, implicit=implicit,
                 slot_chunk=side.slot_chunk, dtype=dtype,
                 spd_kernel=spd_kernel, fused_gramian=fused_gramian,
+                schedules=side.gg_schedules,
             )
 
         iter_s = []

@@ -1,9 +1,10 @@
 """The port's hand-written Hopper kernels, each beside its plain PyTorch
 version.
 
-* :func:`gather_gramian_accumulate` (``csrc/gather_gramian.cu``) replaces
-  the reference's Pallas ``_make_gather_gramian_kernel``
-  (``oryx_tpu/ops/pallas_kernels.py:221-289``);
+* :func:`gather_gramian_accumulate` (``csrc/gather_gramian.cu``: bounded
+  work units from :func:`gather_gramian_schedule`, then an ordered
+  reduction of split rows) replaces the reference's Pallas
+  ``_make_gather_gramian_kernel`` (``oryx_tpu/ops/pallas_kernels.py:221-289``);
 * :func:`spd_solve_batched` (``csrc/spd_solve.cu``: a warp per system for
   k <= 64, a CTA per system up to k = 240, :func:`spd_variant`) replaces
   ``_spd_solve_kernel`` (``pallas_kernels.py:89-116``);
@@ -26,6 +27,7 @@ wrappers allocate the outputs. They are built on first use
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import logging
 
@@ -40,7 +42,9 @@ LAUNCHES = {"gather_gramian_accumulate": 0, "spd_solve_batched": 0,
             "kmeans_assign_accumulate": 0}
 #: The same launches by kernel and shape, ``(kernel, shape) -> count``:
 #: ``kernel`` is the wrapper's name, for the SPD solve with the variant
-#: appended (``"spd_solve_batched.warp"``, ``".cta"``); ``shape`` is
+#: appended (``"spd_solve_batched.warp"``, ``".cta"``), and
+#: ``"gather_gramian_accumulate.reduce"`` for the gather-Gramian's second
+#: launch, which a block with a split row adds; ``shape`` is
 #: ``(block + 1, S, T, k, dtype)`` for the gather-Gramian (``dtype`` as
 #: ``str(y.dtype)``), ``(B, k)`` for the SPD solve and ``(N, D, K)`` for the
 #: sweep.
@@ -55,7 +59,11 @@ def reset_launches() -> None:
 
 def _count(name: str, shape: tuple, kernel: "str | None" = None) -> None:
     LAUNCHES[name] += 1
-    key = (kernel or name, shape)
+    _count_shape(kernel or name, shape)
+
+
+def _count_shape(kernel: str, shape: tuple) -> None:
+    key = (kernel, shape)
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
@@ -63,6 +71,10 @@ def _count(name: str, shape: tuple, kernel: "str | None" = None) -> None:
 # CUDA kernel tiles any k, so the trainer selects the fused path exactly
 # where the reference does.
 GG_MAX_FEATURES = 256
+# Entries per work unit of the gather-Gramian kernel (:func:`gather_gramian_schedule`
+# rounds it up to a multiple of the slot width, and raises it for a block
+# whose split rows would outgrow the workspace bound).
+GG_UNIT_ENTRIES = 512
 
 # Shared memory one block may use on an H100 (227 KB). The SPD CTA kernel
 # keeps the augmented k x (k+1) matrix plus one k-vector there, 4·k·(k+2)
@@ -77,8 +89,8 @@ _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
 _SIGNATURES = {
     "oryx_gather_gramian": (
-        [_C_PTR, _C_INT, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
-         _C_PTR, _C_INT, _C_INT, _C_INT, _C_PTR],
+        [_C_PTR, _C_INT, _C_PTR, _C_INT, _C_PTR, _C_INT, _C_PTR, _C_PTR,
+         _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_PTR],
         _C_INT,
     ),
     "oryx_spd_solve": ([_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_PTR], _C_INT),
@@ -131,7 +143,122 @@ def gather_gramian_supported(features: int) -> bool:
     return features <= GG_MAX_FEATURES
 
 
-def gather_gramian_accumulate(y, srow, scols, w, coef, slens, *, block: int):
+@dataclasses.dataclass(frozen=True)
+class GatherGramianSchedule:
+    """The gather-Gramian kernel's work units for one packed block
+    (:func:`gather_gramian_schedule`).
+
+    ``work`` is (units + unvisited rows, 4) int32, one item per kernel
+    block: ``(row, first slot, end slot, workspace slot)``. The first
+    ``units`` items are the units, longest first (ties in slot order), so
+    the card starts the long ones first and the short ones fill in at the
+    end. A unit of a split row has its own workspace slot, numbered 0, 1,
+    … in slot order; a single-unit row's has -1 and writes straight into
+    the output. The rest are the rows that no valid slot visits, the spill
+    row included, as empty items ``(row, 0, 0, -1)``, which write zeros.
+    ``split`` is (split rows, 3) int32: ``(row, first workspace slot, end
+    workspace slot)``; pass 2 sums each split row's slots in that order.
+    """
+
+    work: torch.Tensor
+    split: torch.Tensor
+    units: int
+    split_units: int
+    unit_entries: int
+    max_entries_per_unit: int
+    block: int
+    slots: int
+    slot_width: int
+
+    @property
+    def split_rows(self) -> int:
+        return self.split.shape[0]
+
+    def workspace_bytes(self, features: int) -> int:
+        """Bytes of the split rows' partial tiles at ``features`` = k."""
+        return self.split_units * features * (features + 1) * 4
+
+
+def gather_gramian_schedule(srow, slens, *, block: int, slot_width: int,
+                            unit_entries: "int | None" = None,
+                            device=None) -> GatherGramianSchedule:
+    """Cut a block's owner rows into the kernel's work units.
+
+    A unit is a run of consecutive valid slots (``slens > 0``) of one owner
+    row, ``unit_entries // slot_width`` slots at most, so at most
+    ``unit_entries`` entries; a slot is never split and units never cross
+    rows. Pad slots belong to no unit. ``unit_entries`` must be a positive
+    multiple of the slot width; by default it is :data:`GG_UNIT_ENTRIES`
+    rounded up to one. While the units of split rows (rows of more than
+    one unit) exceed ``(block + 1) // 2``, the unit size doubles: the
+    kernel's workspace, ``split_units · k(k+1)`` floats, then never exceeds
+    the output's ``(block + 1) · k²`` at any k.
+
+    Computed on the host (it synchronises on device inputs), once per block
+    at pack time; the tensors go to ``device`` (default: ``srow``'s).
+    """
+    t = slot_width
+    if unit_entries is None:
+        unit_entries = -(-GG_UNIT_ENTRIES // t) * t
+    if unit_entries < t or unit_entries % t:
+        raise ValueError(f"unit_entries {unit_entries} must be a positive "
+                         f"multiple of the slot width {t}")
+    dev = srow.device if device is None else torch.device(device)
+    srow = torch.as_tensor(srow).cpu().long()
+    lens = torch.as_tensor(slens).cpu().long()
+    slots = srow.shape[0]
+    valid = torch.nonzero(lens > 0).flatten()
+    rows = srow[valid]
+    if rows.numel() and (bool((rows[1:] < rows[:-1]).any())
+                         or int(rows[0]) < 0 or int(rows[-1]) > block):
+        raise ValueError("gather_gramian_schedule: slots must be sorted by "
+                         f"owner row in [0, {block}]")
+    n = rows.shape[0]
+    first = torch.ones(n, dtype=torch.bool)
+    first[1:] = rows[1:] != rows[:-1]
+    run_start = torch.nonzero(first).flatten()  # each row's first valid slot
+    run = torch.cumsum(first.long(), 0) - 1
+    pos = torch.arange(n) - run_start[run]  # slot's place among its row's
+    run_len = torch.diff(run_start, append=torch.tensor([n]))
+    u = unit_entries
+    while True:
+        per = u // t
+        run_units = -(-run_len // per)
+        run_split = run_units > 1
+        split_units = int(run_units[run_split].sum())
+        if 2 * split_units <= block + 1:
+            break
+        u *= 2
+    starts = torch.nonzero(pos % per == 0).flatten()
+    ends = torch.cat([starts, torch.tensor([n])])[1:]
+    entries = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.long),
+                                      lens[valid]]), 0)
+    unit_split = run_split[run[starts]]
+    ws_slot = torch.where(unit_split, torch.cumsum(unit_split.long(), 0) - 1,
+                          -1)
+    unit_len = entries[ends] - entries[starts]
+    units = torch.stack([rows[starts], valid[starts],
+                         valid[ends - 1] + 1, ws_slot], 1)
+    units = units[torch.argsort(-unit_len, stable=True)]
+    unvisited = torch.ones(block + 1, dtype=torch.bool)
+    unvisited[rows] = False
+    zero_rows = torch.nonzero(unvisited).flatten()
+    zeros = torch.zeros_like(zero_rows)
+    work = torch.cat([units, torch.stack([zero_rows, zeros, zeros,
+                                          zeros - 1], 1)])
+    split_ends = torch.cumsum(run_units[run_split], 0)
+    split = torch.stack([rows[run_start[run_split]],
+                         split_ends - run_units[run_split], split_ends], 1)
+    return GatherGramianSchedule(
+        work=work.to(torch.int32).to(dev), split=split.to(torch.int32).to(dev),
+        units=starts.shape[0], split_units=split_units, unit_entries=u,
+        max_entries_per_unit=int(unit_len.max()) if n else 0,
+        block=block, slots=slots, slot_width=t,
+    )
+
+
+def gather_gramian_accumulate(y, srow, scols, w, coef, slens, *, block: int,
+                              schedule: "GatherGramianSchedule | None" = None):
     """Fused gather → per-slot Gramian → per-row accumulate for one block.
 
     Args:
@@ -143,9 +270,13 @@ def gather_gramian_accumulate(y, srow, scols, w, coef, slens, *, block: int):
         padding entries.
       slens: (S,) int32 valid entries per slot (0 = pad slot).
       block: rows per block; the outputs carry the extra spill row.
+      schedule: the block's :func:`gather_gramian_schedule`, built once
+        where the block is packed; on the card, without one, the wrapper
+        builds it (a host synchronisation). The plain version needs none.
 
     Returns (A (block+1, k, k), b (block+1, k)), float32. Rows no slot
-    visits are exactly zero.
+    visits are exactly zero. On the card the result is the same bits on
+    every call.
     """
     name = "gather_gramian_accumulate"
     if not _route(name, y.device):
@@ -161,22 +292,33 @@ def gather_gramian_accumulate(y, srow, scols, w, coef, slens, *, block: int):
     if srow.shape != (s,) or slens.shape != (s,) or w.shape != (s, t) \
             or coef.shape != (s, t):
         raise ValueError(f"{name}: inconsistent slot shapes")
-    # slots are row-sorted, so row r owns slots [start[r], start[r+1])
-    row_start = torch.searchsorted(
-        srow, torch.arange(block + 2, device=dev, dtype=torch.int32),
-        out_int32=True,
-    )
+    if schedule is None:
+        schedule = gather_gramian_schedule(srow, slens, block=block,
+                                           slot_width=t)
+    if (schedule.block, schedule.slots, schedule.slot_width) != (block, s, t):
+        raise ValueError(f"{name}: the schedule is for block {schedule.block}, "
+                         f"{schedule.slots} slots of {schedule.slot_width}, "
+                         f"not {block}, {s} of {t}")
+    _check_cuda(name, dev, work=(schedule.work, i32),
+                split=(schedule.split, i32))
     a = torch.empty((block + 1, k, k), device=dev, dtype=torch.float32)
     b = torch.empty((block + 1, k), device=dev, dtype=torch.float32)
+    ws = (torch.empty((schedule.split_units, k * k + k), device=dev,
+                      dtype=torch.float32) if schedule.split_units else None)
     with torch.cuda.device(dev):
         err = _entry("gather_gramian", "oryx_gather_gramian")(
-            y.data_ptr(), int(y.dtype == torch.bfloat16), row_start.data_ptr(),
+            y.data_ptr(), int(y.dtype == torch.bfloat16),
+            schedule.work.data_ptr(), schedule.work.shape[0],
+            schedule.split.data_ptr(), schedule.split_rows,
             scols.data_ptr(), w.data_ptr(), coef.data_ptr(), slens.data_ptr(),
-            a.data_ptr(), b.data_ptr(), block + 1, t, k,
-            torch.cuda.current_stream(dev).cuda_stream,
+            None if ws is None else ws.data_ptr(), a.data_ptr(), b.data_ptr(),
+            t, k, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(name, err)
-    _count(name, (block + 1, s, t, k, str(y.dtype)))
+    shape = (block + 1, s, t, k, str(y.dtype))
+    _count(name, shape)
+    if schedule.split_rows:
+        _count_shape(f"{name}.reduce", shape)
     return a, b
 
 

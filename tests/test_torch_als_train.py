@@ -83,8 +83,9 @@ def test_half_iteration_matches_reference_kernels(implicit, dtype):
     got = tr.solve_side_blocked(
         state.init_y(y, device="cpu"), got_u.srows, got_u.scols, got_u.svals,
         got_u.slens, 0.01, 1.3, block=got_u.block, features=k,
-        implicit=implicit, slot_chunk=got_u.slot_chunk, dtype=dtype,
-        spd_kernel=True, fused_gramian=True,
+        implicit=implicit, slot_chunk=got_u.slot_chunk,
+        schedules=got_u.gg_schedules, dtype=dtype, spd_kernel=True,
+        fused_gramian=True,
     ).numpy()
     assert got.shape == ref.shape
     tol = 1e-4 if dtype == "float32" else 2e-2

@@ -30,17 +30,21 @@ torch.set_num_threads(1)
 SEED = 0x7A1C
 
 
-def _gg_inputs(seed, k, t, block, n_slots, n_pad, n_factor_rows=40):
+def _gg_inputs(seed, k, t, block, n_slots, n_pad, n_factor_rows=40, hot=0):
     """A sorted slotted layout over a random subset of the block's rows (so
     some rows are never visited), slots with 0..T valid entries, and pad
-    slots owned by the spill row; weights zero past each slot's length."""
+    slots owned by the spill row; weights zero past each slot's length.
+    ``hot`` more slots go to one row (a popular item), after the draws of
+    the layout without them."""
     rng = np.random.default_rng(seed)
     owners = np.sort(rng.choice(block, size=n_slots, replace=True))
+    if hot:
+        owners = np.sort(np.concatenate([owners, np.full(hot, owners[0])]))
     srow = np.concatenate([owners, np.full(n_pad, block)]).astype(np.int32)
     s = len(srow)
     slens = rng.integers(0, t + 1, s).astype(np.int32)
     slens[0] = t  # at least one full slot
-    slens[n_slots:] = 0
+    slens[len(owners):] = 0
     scols = rng.integers(0, n_factor_rows, (s, t)).astype(np.int32)
     mask = np.arange(t)[None, :] < slens[:, None]
     w = ((np.abs(rng.standard_normal((s, t))) + 0.1) * mask).astype(np.float32)
@@ -80,6 +84,96 @@ def test_gather_gramian_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     assert K.LAUNCHES["gather_gramian_accumulate"] == before + 1
     pa, pb = K.gather_gramian_accumulate_plain(ty, *args, block=40)
+    assert (a - pa).abs().max() / pa.abs().max() < 1e-5
+    assert (b - pb).abs().max() / pb.abs().max() < 1e-5
+
+
+def _gg_on_card(device, dtype, y, srow, scols, w, coef, slens, block):
+    """Two kernel calls on the same block, the first building its own
+    schedule, the second given it: the same bits from both; one main launch
+    per call at the block's shape, plus one reduce launch per call where the
+    schedule has a split row. Returns (A, b, plain A, plain b, schedule)."""
+    args = [torch.from_numpy(v).to(device)
+            for v in (srow, scols, w, coef, slens)]
+    ty = torch.from_numpy(y).to(_torch_dtype(dtype)).to(device)
+    sched = K.gather_gramian_schedule(args[0], args[4], block=block,
+                                      slot_width=scols.shape[1])
+    before = dict(K.SHAPE_LAUNCHES)
+    a, b = K.gather_gramian_accumulate(ty, *args, block=block)
+    a2, b2 = K.gather_gramian_accumulate(ty, *args, block=block,
+                                         schedule=sched)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+    shape = (block + 1, *scols.shape, y.shape[1], str(ty.dtype))
+    after = dict(before)
+    for kernel, n in (("gather_gramian_accumulate", 2),
+                      ("gather_gramian_accumulate.reduce",
+                       2 if sched.split_rows else 0)):
+        if n:
+            after[(kernel, shape)] = after.get((kernel, shape), 0) + n
+    assert K.SHAPE_LAUNCHES == after
+    pa, pb = K.gather_gramian_accumulate_plain(ty, *args, block=block)
+    return a, b, pa, pb, sched
+
+
+# k: each side of the 64-wide tile edges (one tile up to 64, four at 65,
+# nine at 130) and the production 50
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 50, 64, 65, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_gramian_kernel_splits_a_hot_row(cuda_device, k, dtype):
+    """A row of 200 extra slots (~1,600 entries: at least 4 units at the
+    default unit size) beside ordinary rows: relative 1e-5 against the
+    plain version (f32 sums in another order; bf16 rounds alike on both);
+    rows no slot visits and the spill row exactly 0; two calls bitwise
+    equal; the reduce launched once per call."""
+    block = 40
+    y, srow, scols, w, coef, slens = _gg_inputs(
+        SEED + k, k, 16, block, 60, 8, n_factor_rows=300, hot=200)
+    a, b, pa, pb, sched = _gg_on_card(cuda_device, dtype, y, srow, scols, w,
+                                      coef, slens, block)
+    assert sched.split_rows >= 1
+    assert int((sched.split[:, 2] - sched.split[:, 1]).max()) >= 4
+    assert (a - pa).abs().max() / pa.abs().max() < 1e-5
+    assert (b - pb).abs().max() / pb.abs().max() < 1e-5
+    unvisited = np.setdiff1d(np.arange(block + 1), srow[slens > 0])
+    assert block in unvisited and len(unvisited) > 1
+    assert not a[unvisited].any() and not b[unvisited].any()
+
+
+@pytest.mark.cuda
+def test_gather_gramian_kernel_on_an_all_pad_block(cuda_device):
+    """Pad slots only: every row, the spill row included, exactly 0, and no
+    reduce launch."""
+    block, t = 12, 16
+    y = np.random.default_rng(SEED).standard_normal((20, 50)).astype(np.float32)
+    srow = np.full(5, block, np.int32)
+    scols = np.zeros((5, t), np.int32)
+    w = coef = np.zeros((5, t), np.float32)
+    slens = np.zeros(5, np.int32)
+    a, b, _, _, sched = _gg_on_card(cuda_device, "float32", y, srow, scols, w,
+                                    coef, slens, block)
+    assert sched.units == 0 and sched.split_rows == 0
+    assert a.shape == (block + 1, 50, 50) and not a.any() and not b.any()
+
+
+@pytest.mark.cuda
+def test_gather_gramian_kernel_on_a_dense_block(cuda_device):
+    """8 rows of 200 full slots: the schedule raises the unit size to keep
+    the workspace within the output's size; relative 1e-5 against the
+    plain version."""
+    rng = np.random.default_rng(SEED + 1)
+    block, t, k = 8, 8, 50
+    srow = np.repeat(np.arange(block), 200).astype(np.int32)
+    slens = np.full(len(srow), t, np.int32)
+    scols = rng.integers(0, 500, (len(srow), t)).astype(np.int32)
+    w = (np.abs(rng.standard_normal((len(srow), t))) + 0.1).astype(np.float32)
+    coef = rng.standard_normal((len(srow), t)).astype(np.float32)
+    y = rng.standard_normal((500, k)).astype(np.float32)
+    a, b, pa, pb, sched = _gg_on_card(cuda_device, "float32", y, srow, scols,
+                                      w, coef, slens, block)
+    assert sched.unit_entries > K.GG_UNIT_ENTRIES
+    assert sched.workspace_bytes(k) <= (block + 1) * k * k * 4
     assert (a - pa).abs().max() / pa.abs().max() < 1e-5
     assert (b - pb).abs().max() / pb.abs().max() < 1e-5
 
@@ -189,6 +283,45 @@ def test_als_train_on_the_card_matches_the_cpu(cuda_device):
                           device="cpu", fused_gramian=True, spd_kernel=True)
     for got, ref in ((x.cpu(), cx), (y.cpu(), cy)):
         assert (got - ref).abs().max() / ref.abs().max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_half_iteration_with_packed_schedules_makes_no_host_sync(cuda_device):
+    """An item half-iteration through the kernels with the pack's
+    gather-Gramian schedules (a hot item makes split rows) runs with
+    PyTorch's synchronisation check set to raise, and gives the same
+    factors as schedules built anew from the packed device slots."""
+    rng = np.random.default_rng(SEED + 3)
+    n_users, n_items, nnz, k = 2000, 60, 20_000, 16
+    cols = np.where(rng.random(nnz) < 0.3, 0,
+                    rng.integers(1, n_items, nnz)).astype(np.int32)
+    rows = rng.integers(0, n_users, nnz).astype(np.int32)
+    keep = np.unique(rows.astype(np.int64) * n_items + cols, return_index=True)[1]
+    rows, cols = rows[np.sort(keep)], cols[np.sort(keep)]
+    order = np.argsort(rows, kind="stable")
+    batch = RatingBatch(rows[order], cols[order], np.ones(len(rows), np.float32),
+                        range(n_users), range(n_items))
+    _, items = tr.prepare_blocked(batch, k, device=cuda_device)
+    assert any(sc.split_rows for sc in items.gg_schedules)
+    x = torch.from_numpy(
+        0.1 * rng.standard_normal((n_users, k)).astype(np.float32)).to(cuda_device)
+
+    def half(schedules):
+        return tr.solve_side_blocked(
+            x, items.srows, items.scols, items.svals, items.slens, 0.1, 1.0,
+            block=items.block, features=k, implicit=True,
+            slot_chunk=items.slot_chunk, schedules=schedules)
+
+    ref = half([K.gather_gramian_schedule(  # also builds the kernels
+        items.srows[b], items.slens[b], block=items.block,
+        slot_width=items.slot_width) for b in range(items.n_blocks)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = half(items.gg_schedules)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, ref)
 
 
 # -- k-means Lloyd sweep --------------------------------------------------------

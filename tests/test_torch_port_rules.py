@@ -42,6 +42,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tune_gather_gramian.py")
 
 
 def _imported_modules(path):
