@@ -13,7 +13,7 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
   build    every kernel built from ``oryx_tpu_torch/ops/csrc`` into
            ``build/`` (one ``nvcc`` per source, started together); the
            registers and spill bytes ``ptxas -v`` logged for each SPD kernel
-           (a spill fails);
+           and each of the sweep's kernels (a spill fails);
   data     a seeded synthetic implicit dataset at the batch benchmark's
            training shape — 100,000 users × 10,000 items, ~1,000,000
            interactions with planted rank-5 preferences and power-law item
@@ -59,10 +59,13 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            the Lloyd-sweep kernel against its plain version on 1,000,000 ×
            64 standard-normal points with K = 256 (near ties allowed), on
            200,000 points of 256 planted blobs (exact counts) and on their
-           first 100,000 (the update path's shape), both timed beside the
-           plain version, the cross term's ``torch.matmul`` and the card's
-           bound; and at K = 1,024, D = 128 (chunked centres, partial sums
-           in device memory);
+           first 100,000 (the update path's shape), both timed by bare
+           launches of the C entry (20 per event pair; the same bits as the
+           wrapper's) and through the wrapper, beside the plain version, the
+           cross term's ``torch.matmul`` (the entry's ``library_ms``) and
+           the card's bound, and each profiled for one sweep (the profile
+           must list each of its three launches once); and at K = 1,024,
+           D = 128 (chunked centres, partial sums in device memory);
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
            the planted blobs through ``KMeansUpdate.build_model`` (the
@@ -410,15 +413,33 @@ def spd_fused_form(a, b):
     return aug[:, :, k]
 
 
-def ptxas_usage(log: str) -> dict:
-    """Registers and spill bytes per SPD kernel from ``ptxas -v``'s log:
-    ``warp<KP>`` for each warp-kernel template, ``cta`` for the CTA kernel."""
+def spd_kernel_label(mangled: str) -> str:
+    """``warp<KP>`` for each SPD warp-kernel template, ``cta`` for the CTA
+    kernel."""
+    kp = re.search(r"spd_solve_warp_kernelILi(\d+)E", mangled)
+    return f"warp<{kp.group(1)}>" if kp else "cta"
+
+
+def sweep_kernel_label(mangled: str) -> str:
+    """``assign_kernel<true>`` (16-byte loads) / ``<false>`` (scalar loads),
+    ``partial_kernel<true>`` (slab in shared memory) / ``<false>``,
+    ``reduce_kernel``."""
+    m = re.search(r"(assign_kernel|partial_kernel|reduce_kernel)(?:ILb([01])E)?",
+                  mangled)
+    if m is None:
+        return mangled
+    flag = {"1": "<true>", "0": "<false>", None: ""}[m.group(2)]
+    return m.group(1) + flag
+
+
+def ptxas_usage(log: str, label) -> dict:
+    """Registers and spill bytes per kernel from ``ptxas -v``'s log, keyed
+    by ``label(mangled name)``."""
     usage, kernel = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            kp = re.search(r"spd_solve_warp_kernelILi(\d+)E", entry.group(1))
-            kernel = f"warp<{kp.group(1)}>" if kp else "cta"
+            kernel = label(entry.group(1))
             usage[kernel] = {}
         elif kernel and "bytes spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -429,13 +450,13 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def spd_ptxas_usage() -> dict:
-    """The ptxas usage of every SPD kernel, from the library's build log;
-    fails if any spills."""
-    usage = ptxas_usage(_build.build_log("spd_solve"))
-    check(len(usage) > 1 and all(u.get("spill_bytes") == 0 and u.get("registers")
-                                 for u in usage.values()),
-          f"spd_solve: ptxas reports spills or no usage: {usage}")
+def ptxas_checked(name: str, label, kernels: int) -> dict:
+    """The ptxas usage of every kernel in library ``name``, from its build
+    log; fails if any spills, or if fewer than ``kernels`` are listed."""
+    usage = ptxas_usage(_build.build_log(name), label)
+    check(len(usage) >= kernels and all(
+        u.get("spill_bytes") == 0 and u.get("registers") for u in usage.values()),
+          f"{name}: ptxas reports spills or no usage: {usage}")
     return usage
 
 
@@ -591,6 +612,7 @@ def device_profile(fn) -> dict:
               if e.name == "chip_smoke.window"]
     opened = min(window) if window else -float("inf")
     by_name: dict = {}
+    count: dict = {}
     spans = []
     for e in events:
         if (e.device_type != DeviceType.CUDA or e.time_range.start < opened
@@ -601,6 +623,7 @@ def device_profile(fn) -> dict:
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0][:70]
         by_name[name] = by_name.get(name, 0.0) + (end - start)
+        count[name] = count.get(name, 0) + 1
     if not spans:
         return {"device_time": "not measured", "wall_ms": wall_us / 1e3}
     busy_us = _interval_union_us(spans)
@@ -609,6 +632,7 @@ def device_profile(fn) -> dict:
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "kernels_ms": {n: us / 1e3 for n, us in top},
+        "kernel_launches": {n: count[n] for n, _ in top},
     }
 
 
@@ -743,45 +767,104 @@ def blob_points(rng: np.random.Generator, means: np.ndarray, n: int):
             + rng.standard_normal((n, means.shape[1]), dtype=np.float32))
 
 
-def sweep_timing(points, weights, centers) -> dict:
-    """The sweep kernel timed beside its plain version, the cross term's
-    ``torch.matmul`` and the card's bound for (N, D, K)."""
+def sweep_bare_launch(points, weights, centers):
+    """A no-argument launch of ``oryx_kmeans_assign`` (all three launches)
+    on the wrapper's arguments and plan, into preallocated scratch and
+    output, with the pointers taken once: the sweep timed apart from the
+    wrapper's host cost, as the other kernels are."""
+    n, d = points.shape
+    k = centers.shape[0]
+    plan = K.kmeans_sweep_plan(n, k, d)
+    dev = points.device
+    assign = torch.empty(n, device=dev, dtype=torch.int32)
+    min_d2 = torch.empty(n, device=dev)
+    ws = torch.empty((plan.parts, plan.slab_floats), device=dev)
+    out = torch.empty(plan.slab_floats, device=dev)
+    fn = K._entry("kmeans_assign", "oryx_kmeans_assign")
+    cargs = K.kmeans_sweep_args(points, weights, centers, plan, assign, min_d2,
+                                ws, out, torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = fn(*cargs)
+        check(err == 0, f"oryx_kmeans_assign: CUDA error {err}")
+        return out
+
+    return launch
+
+
+SWEEP_LAUNCHES = ("assign_kernel", "partial_kernel", "reduce_kernel")
+
+
+def sweep_profile(args, label: str) -> dict:
+    """One sweep through the wrapper under ``torch.profiler``; fails unless
+    the profile lists each of the sweep's three launches once."""
+    prof = device_profile(lambda: K.kmeans_assign_accumulate(*args))
+    launches = prof.get("kernel_launches", {})
+    for kernel in SWEEP_LAUNCHES:
+        seen = sum(c for name, c in launches.items() if name.startswith(kernel))
+        check(seen == 1, f"kmeans {label}: the profile lists {seen} "
+              f"{kernel} launches, not 1: {launches}")
+    return prof
+
+
+def sweep_timing(points, weights, centers, label: str) -> dict:
+    """The sweep timed by bare launches of its C entry (20 per CUDA-event
+    pair) and through the wrapper (one call per pair), beside its plain
+    version, the cross term's ``torch.matmul`` (TF32 off) and the card's
+    bound for (N, D, K); and one sweep profiled per launch."""
     n, d = points.shape
     k = centers.shape[0]
     args = (points, weights, centers)
+    launch = sweep_bare_launch(*args)
+    bare = launch().clone()
+    sums, counts, cost = K.kmeans_assign_accumulate(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(bare, torch.cat([sums.flatten(), counts, cost[None]])),
+          f"kmeans {label}: the bare launch differs from the wrapper")
     nbytes = (n * d + n + k * d  # points, weights, centres
               + k * d + k + 1) * 4  # sums, counts, cost written
     flops = 2.0 * n * k * d + 2.0 * n * d
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     return {
-        "kernel_ms": time_ms(lambda: K.kmeans_assign_accumulate(*args)),
+        "kernel_ms": time_ms(launch, inner=INNER),
+        "wrapper_ms": time_ms(lambda: K.kmeans_assign_accumulate(*args)),
         "plain_ms": time_ms(lambda: K.kmeans_assign_accumulate_plain(*args),
                             reps=5, warmup=1),
         "cross_term_matmul_ms": time_ms(lambda: points @ centers.T),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "profile": sweep_profile(args, label),
     }
 
 
 def sweep_entry(label, case, timing) -> dict:
     """A kernels-line entry for the sweep at one shape."""
+    n, d, k = case["n"], case["d"], case["k"]
+    plan = K.kmeans_sweep_plan(n, k, d)
     return {
         "name": f"kmeans_assign_accumulate[{label}]",
         "route": "cuda", "source": KM_SOURCE, "replaces": KM_REPLACES,
-        "launch_key": launch_key("kmeans_assign_accumulate",
-                                 (case["n"], case["d"], case["k"])),
-        "shape": {"n": case["n"], "d": case["d"], "k": case["k"],
-                  "dtype": "float32"},
+        "launch_key": launch_key("kmeans_assign_accumulate", (n, d, k)),
+        "shape": {"n": n, "d": d, "k": k, "dtype": "float32"},
+        "plan": {"tiles": plan.tiles, "assign_ctas": plan.assign_ctas,
+                 "stages": plan.stages,
+                 "parts": plan.parts, "walk_threads": plan.walk_threads,
+                 "walk_groups": plan.walk_groups,
+                 "slab_in_smem": plan.slab_in_smem},
         "max_abs_err": case["max_abs_err"], "max_rel_err": case["max_rel_err"],
         "tol": 1e-4, "cost_rel_err": case["cost_rel_err"], "cost_tol": 1e-5,
         "count_l1": case["count_l1"],
-        "ms": timing["kernel_ms"], **timing, "library_ms": None,
+        "ms": timing["kernel_ms"],
+        **{key: v for key, v in timing.items() if key != "profile"},
+        "library_ms": timing["cross_term_matmul_ms"],
+        "library": "cross term only: points @ centers.T (torch.matmul, "
+                   "TF32 off); no PyTorch call computes the sweep",
     }
 
 
 def kmeans_kernel_phase(dev, rng):
     """The sweep kernel in its four cases; the 1M × 64 case and the update
-    path's 100k × 64 case timed. Returns the phase's record, the
-    kernels-line entries (100k, then 1M) and the 1M × 64 points."""
+    path's 100k × 64 case timed and profiled. Returns the phase's record,
+    the kernels-line entries (100k, then 1M) and the 1M × 64 points."""
     pts = torch.from_numpy(
         rng.standard_normal((KM_N, KM_D), dtype=np.float32)).to(dev)
     ones = torch.ones(KM_N, device=dev)
@@ -789,7 +872,7 @@ def kmeans_kernel_phase(dev, rng):
         rng.standard_normal((KM_K, KM_D), dtype=np.float32)).to(dev)
     cases = [sweep_check(pts, ones, centers, True, "1M x 64, K=256, normal")]
     args = (pts, ones, centers)
-    timing = sweep_timing(*args)
+    timing = sweep_timing(*args, "1M x 64")
 
     means = blob_means(rng)
     blobs = torch.from_numpy(blob_points(rng, means, KM_BLOB_POINTS)).to(dev)
@@ -800,18 +883,17 @@ def kmeans_kernel_phase(dev, rng):
     update_args = (blobs[:KM_LINES].contiguous(),
                    torch.ones(KM_LINES, device=dev), blob_centers)
     cases.append(sweep_check(*update_args, False, "100k planted blobs, K=256"))
-    update_timing = sweep_timing(*update_args)
+    update_timing = sweep_timing(*update_args, "100k x 64")
     wide_means = rng.uniform(-10.0, 10.0, (1024, 128)).astype(np.float32)
     wide = torch.from_numpy(blob_points(rng, wide_means, 50_000)).to(dev)
     wide_args = (wide, torch.ones(50_000, device=dev),
                  torch.from_numpy(wide_means).to(dev))
     cases.append(sweep_check(*wide_args, False, "50k blobs, K=1024, D=128"))
-    wide_ms = time_ms(lambda: K.kmeans_assign_accumulate(*wide_args), reps=5)
-    sweep_profile = device_profile(lambda: K.kmeans_assign_accumulate(*args))
+    wide_ms = time_ms(sweep_bare_launch(*wide_args), inner=INNER)
     entries = [sweep_entry("100k x 64, K=256, update", cases[2], update_timing),
                sweep_entry("1M x 64, K=256", cases[0], timing)]
     record = {"cases": cases, **timing, "update_shape": update_timing,
-              "wide_kernel_ms": wide_ms, "sweep_profile": sweep_profile}
+              "wide_kernel_ms": wide_ms}
     return record, entries, pts
 
 
@@ -955,7 +1037,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=built,
-         spd_ptxas=spd_ptxas_usage())
+         spd_ptxas=ptxas_checked("spd_solve", spd_kernel_label, 2),
+         sweep_ptxas=ptxas_checked("kmeans_assign", sweep_kernel_label, 5))
     cta_fn = spd_cta_entry()
 
     rng = np.random.default_rng(SEED)

@@ -79,7 +79,7 @@ GG_UNIT_ENTRIES = 512
 # Shared memory one block may use on an H100 (227 KB). The SPD CTA kernel
 # keeps the augmented k x (k+1) matrix plus one k-vector there, 4·k·(k+2)
 # bytes: k <= 240 fits. Past that the solve is a Cholesky factorisation.
-SPD_SMEM_BYTES = 232_448
+SMEM_BYTES = 232_448
 # The largest k that ``oryx_spd_solve`` sends to its warp-per-system kernel
 # (``kWarpMaxK`` in ``csrc/spd_solve.cu``; the wrapper checks that the
 # library agrees before its first launch).
@@ -95,8 +95,9 @@ _SIGNATURES = {
     ),
     "oryx_spd_solve": ([_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_PTR], _C_INT),
     "oryx_kmeans_assign": (
-        [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR,
-         _C_PTR, _C_PTR, _C_PTR, _C_PTR],
+        [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,
+         _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR, _C_PTR, _C_PTR,
+         _C_PTR, _C_PTR],
         _C_INT,
     ),
 }
@@ -352,7 +353,7 @@ def slot_gramians(y, scols, w, coef):
 def spd_use_kernel(k: int) -> bool:
     """Whether a k-feature system fits the SPD kernel's shared memory
     (k <= 240 on an H100); larger k is solved by Cholesky."""
-    return 4 * k * (k + 2) <= SPD_SMEM_BYTES
+    return 4 * k * (k + 2) <= SMEM_BYTES
 
 
 def spd_variant(k: int) -> str:
@@ -446,6 +447,28 @@ def spd_solve_cholesky(a, b):
 KMEANS_MAX_PARTS = 1024
 KMEANS_POINTS_PER_PART = 256
 KMEANS_WORKSPACE_FLOATS = 1 << 26
+# The assign launch (``kThreads``, ``kTP``, ``kTC``, ``kTD`` and ``kLd`` in
+# ``csrc/kmeans_assign.cu``): 128 threads, 64 points × 256 centres per CTA,
+# 32 dimensions a stage, two stages of both in shared memory, rows padded
+# to 36 floats.
+KMEANS_TILE_POINTS = 64
+KMEANS_TILE_CENTERS = 256
+KMEANS_TILE_DIMS = 32
+KMEANS_TILE_ROW_FLOATS = KMEANS_TILE_DIMS + 4
+# Assign CTAs at most: each walks tiles blockIdx, blockIdx + CTAs, … with one
+# load pipeline across them (two CTAs for each of an H100's 132 SMs; any
+# count gives the same bits).
+KMEANS_ASSIGN_CTAS = 264
+# The walk (``kWalkThreads``, ``kWalkTile``, ``kWalkStages``): at most 512
+# threads in column groups of at most 256; tiles of 32 points of a column
+# pass, with their weights, d2 and centres, four in shared memory.
+KMEANS_WALK_THREADS = 512
+KMEANS_WALK_MAX_COLS = 256
+KMEANS_WALK_TILE = 32
+KMEANS_WALK_STAGES = 4
+# The largest per-CTA slab the walk keeps in shared memory: two CTAs still
+# fit on an SM. A larger slab lives in the CTA's workspace slab.
+KMEANS_SLAB_SMEM_BYTES = 100 * 1024
 
 
 def kmeans_parts(n: int, k: int, d: int) -> int:
@@ -453,6 +476,125 @@ def kmeans_parts(n: int, k: int, d: int) -> int:
     slab = k * d + k + 1
     return max(1, min(-(-n // KMEANS_POINTS_PER_PART), KMEANS_MAX_PARTS,
                       KMEANS_WORKSPACE_FLOATS // slab))
+
+
+@dataclasses.dataclass(frozen=True)
+class KMeansSweepPlan:
+    """The launch geometry of one sweep at (N, K, D) (:func:`kmeans_sweep_plan`).
+
+    Launch 1, assign: ``assign_ctas`` CTAs of 128 threads over ``tiles``
+    tiles of :data:`KMEANS_TILE_POINTS` points, each tile ``stages``
+    (centre chunk, dimension stage) pairs. Launch 2, the walk:
+    ``parts`` CTAs of ``walk_threads`` = ``walk_groups`` × ``walk_cols``;
+    CTA b walks points ``[b·per, (b+1)·per)`` in order. Thread
+    ``g·walk_cols + t`` owns column ``cb + t`` of the sums of every centre
+    c with ``c % walk_groups == g``, for each column pass ``cb`` (0,
+    walk_cols, …); thread ``g·walk_cols`` also owns those centres' counts,
+    and thread 0 the cost. The slab lives in shared memory when
+    ``slab_in_smem``. Launch 3, the reduce, sums the ``parts`` slabs in
+    order. ``*_smem_bytes`` are each launch's shared bytes, static and
+    dynamic.
+    """
+
+    n: int
+    k: int
+    d: int
+    tiles: int
+    assign_ctas: int
+    stages: int
+    parts: int
+    per: int
+    walk_cols: int
+    walk_groups: int
+    slab_floats: int
+    slab_in_smem: bool
+
+    @property
+    def walk_threads(self) -> int:
+        return self.walk_cols * self.walk_groups
+
+    @property
+    def assign_smem_bytes(self) -> int:
+        stage = (KMEANS_TILE_POINTS + KMEANS_TILE_CENTERS) * KMEANS_TILE_ROW_FLOATS
+        return 4 * (2 * stage + KMEANS_TILE_POINTS + KMEANS_TILE_CENTERS)
+
+    @property
+    def walk_tile_bytes(self) -> int:
+        """The walk's tiles."""
+        return 4 * KMEANS_WALK_STAGES * KMEANS_WALK_TILE * (self.walk_cols + 3)
+
+    @property
+    def walk_smem_bytes(self) -> int:
+        slab = 16 * -(-self.slab_floats // 4) if self.slab_in_smem else 0
+        return slab + self.walk_tile_bytes
+
+    @property
+    def reduce_smem_bytes(self) -> int:
+        return 0
+
+    def walk_entries(self, thread: int) -> list:
+        """The slab entries walk thread ``thread`` owns, as the kernel assigns
+        them: ``("sum", c, col)``, ``("count", c)`` and ``("cost",)``."""
+        g, t = divmod(thread, self.walk_cols)
+        mine = range(g, self.k, self.walk_groups)
+        out = [("sum", c, cb + t) for cb in range(0, self.d, self.walk_cols)
+               if cb + t < self.d for c in mine]
+        if t == 0:
+            out += [("count", c) for c in mine]
+        if thread == 0:
+            out.append(("cost",))
+        return out
+
+
+@functools.lru_cache(maxsize=64)
+def kmeans_sweep_plan(n: int, k: int, d: int) -> KMeansSweepPlan:
+    """The sweep's launch geometry for N points, K centres and D dimensions:
+    from the shape alone, never the card, so the summation order is the
+    same on every card. The walk has ``walk_cols`` = D rounded up to a
+    multiple of 32 (at most 256) threads per column group and as many
+    groups as fit in 512 threads, at most K, rounded down to a power of 2,
+    so at D = 64 a CTA walks with 16 warps where one group would have 2.
+    The slab is kept in shared memory when it is at most
+    :data:`KMEANS_SLAB_SMEM_BYTES` and fits beside the walk's tiles."""
+    if min(n, k, d) <= 0:
+        raise ValueError(f"kmeans_sweep_plan: n={n}, k={k}, d={d} must be > 0")
+    parts = kmeans_parts(n, k, d)
+    cols = min(-(-d // 32) * 32, KMEANS_WALK_MAX_COLS)
+    slab = k * d + k + 1
+    groups = 1 << (max(1, min(KMEANS_WALK_THREADS // cols, k)).bit_length() - 1)
+    tile_bytes = 4 * KMEANS_WALK_STAGES * KMEANS_WALK_TILE * (cols + 3)
+    slab_bytes = 16 * -(-slab // 4)
+    return KMeansSweepPlan(
+        n=n, k=k, d=d,
+        tiles=-(-n // KMEANS_TILE_POINTS),
+        assign_ctas=min(-(-n // KMEANS_TILE_POINTS), KMEANS_ASSIGN_CTAS),
+        stages=-(-k // KMEANS_TILE_CENTERS) * -(-d // KMEANS_TILE_DIMS),
+        parts=parts, per=-(-n // parts),
+        walk_cols=cols, walk_groups=groups,
+        slab_floats=slab,
+        slab_in_smem=(4 * slab <= KMEANS_SLAB_SMEM_BYTES
+                      and slab_bytes + tile_bytes <= SMEM_BYTES),
+    )
+
+
+def kmeans_vector_loads(points, centers) -> bool:
+    """Whether the assign launch may read ``points`` and ``centers`` in
+    16-byte vectors: both start on a 16-byte boundary and D % 4 == 0.
+    Otherwise it reads them one float at a time (the same sums)."""
+    return (points.data_ptr() % 16 == 0 and centers.data_ptr() % 16 == 0
+            and points.shape[1] % 4 == 0)
+
+
+def kmeans_sweep_args(points, weights, centers, plan: KMeansSweepPlan,
+                      assign, min_d2, ws, out, stream) -> tuple:
+    """The arguments of ``oryx_kmeans_assign`` for one sweep into the given
+    scratch (assign (N,) int32, min_d2 (N,), ws (parts, slab)) and ``out``
+    (slab,) float32."""
+    return (points.data_ptr(), weights.data_ptr(), centers.data_ptr(),
+            plan.n, plan.d, plan.k, plan.tiles, plan.assign_ctas, plan.parts,
+            plan.walk_cols, plan.walk_groups, int(plan.slab_in_smem),
+            int(kmeans_vector_loads(points, centers)), assign.data_ptr(),
+            min_d2.data_ptr(), ws.data_ptr(), out.data_ptr(), stream)
 
 
 def kmeans_assign_accumulate(points, weights, centers):
@@ -464,6 +606,8 @@ def kmeans_assign_accumulate(points, weights, centers):
     float32: the weighted sums and weights of the points nearest each centre,
     and the weighted sum of their squared distances. Distances are
     ``max(|p|² − 2·p·c + |c|², 0)``; ties go to the lowest centre index.
+    On the card the launches follow :func:`kmeans_sweep_plan`; inputs that
+    are not 16-byte aligned take the kernel's scalar loads.
     """
     name = "kmeans_assign_accumulate"
     if not _route(name, points.device):
@@ -482,18 +626,16 @@ def kmeans_assign_accumulate(points, weights, centers):
     if n == 0:
         out = torch.zeros(slab, device=dev, dtype=torch.float32)
     else:
-        parts = kmeans_parts(n, k, d)
+        plan = kmeans_sweep_plan(n, k, d)
         assign = torch.empty(n, device=dev, dtype=torch.int32)
         min_d2 = torch.empty(n, device=dev, dtype=torch.float32)
-        ws = torch.empty((parts, slab), device=dev, dtype=torch.float32)
+        ws = torch.empty((plan.parts, slab), device=dev, dtype=torch.float32)
         out = torch.empty(slab, device=dev, dtype=torch.float32)
         with torch.cuda.device(dev):
             err = _entry("kmeans_assign", "oryx_kmeans_assign")(
-                points.data_ptr(), weights.data_ptr(), centers.data_ptr(),
-                n, d, k, parts, assign.data_ptr(), min_d2.data_ptr(),
-                ws.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
+                *kmeans_sweep_args(points, weights, centers, plan, assign,
+                                   min_d2, ws, out,
+                                   torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(name, err)
         _count(name, (n, d, k))
     return out[:k * d].view(k, d), out[k * d:k * d + k], out[-1]

@@ -343,10 +343,12 @@ def _sweep_against_plain(points, weights, centers, near_ties):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d", [(700, 7, 5), (1013, 9, 9), (1, 3, 2),
-                                   (5000, 256, 64), (20000, 1024, 128)])
+                                   (5000, 256, 64), (20000, 1024, 128),
+                                   (3000, 64, 300)])
 def test_kmeans_kernel_matches_plain_on_planted_blobs(cuda_device, n, k, d):
-    """Shapes off every tile, one point, the smoke's K and D, and K·D past
-    the shared-memory slab (the partial sums then live in device memory)."""
+    """Shapes off every tile, one point, the smoke's K and D, K·D past the
+    shared-memory slab (the partial sums then live in device memory), and D
+    past one 256-column walk pass."""
     rng = np.random.default_rng(SEED + n + k)
     pts, means = _blob_points(rng, n, k, d)
     weights = rng.uniform(0.5, 2.0, n).astype(np.float32)
@@ -355,6 +357,57 @@ def test_kmeans_kernel_matches_plain_on_planted_blobs(cuda_device, n, k, d):
         weights[:] = 1.0
     t = [torch.from_numpy(a).to(cuda_device) for a in (pts, weights, means)]
     _sweep_against_plain(*t, near_ties=False)
+
+
+def _blob_sweep_inputs(device, seed, n, k, d):
+    rng = np.random.default_rng(seed)
+    pts, means = _blob_points(rng, n, k, d)
+    return [torch.from_numpy(a).to(device)
+            for a in (pts, np.ones(n, np.float32), means)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 63, 65])
+def test_kmeans_kernel_at_ragged_widths(cuda_device, d):
+    """D off the 4-float vectors (scalar loads) and around the 32-dimension
+    stages and the walk's 32-thread column groups, at the smoke's K."""
+    _sweep_against_plain(*_blob_sweep_inputs(cuda_device, SEED + d, 3000, 256, d),
+                         near_ties=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [127, 128, 129])
+def test_kmeans_kernel_around_one_tile(cuda_device, n):
+    """N just under, at and over two of the assign launch's 64-point
+    tiles."""
+    _sweep_against_plain(*_blob_sweep_inputs(cuda_device, SEED + n, n, 256, 64),
+                         near_ties=False)
+
+
+@pytest.mark.cuda
+def test_kmeans_kernel_takes_unaligned_rows(cuda_device):
+    """Points and centres that start 4 bytes past a 16-byte boundary are
+    read by the kernel's scalar loads, not sent to the plain version: the
+    launch is counted and the bits equal the aligned inputs' bits."""
+    pts, weights, centers = _blob_sweep_inputs(cuda_device, SEED + 5, 2000, 256, 64)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    u_pts, u_centers = shifted(pts), shifted(centers)
+    assert u_pts.is_contiguous() and u_pts.data_ptr() % 16 == 4
+    assert not K.kmeans_vector_loads(u_pts, u_centers)
+    assert K.kmeans_vector_loads(pts, centers)
+    before = K.LAUNCHES["kmeans_assign_accumulate"]
+    got = K.kmeans_assign_accumulate(u_pts, weights, u_centers)
+    assert K.LAUNCHES["kmeans_assign_accumulate"] == before + 1
+    want = K.kmeans_assign_accumulate(pts, weights, centers)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    _sweep_against_plain(u_pts, weights, u_centers, near_ties=False)
 
 
 @pytest.mark.cuda

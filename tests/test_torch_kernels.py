@@ -345,7 +345,7 @@ def test_gates_at_their_boundaries():
     assert K.spd_use_kernel(1) and K.spd_use_kernel(50)
     assert K.spd_use_kernel(240)
     assert not K.spd_use_kernel(241)
-    assert 4 * 240 * 241 <= K.SPD_SMEM_BYTES < 4 * 241 * 242
+    assert 4 * 240 * 241 <= K.SMEM_BYTES < 4 * 241 * 242
 
 
 @pytest.mark.parametrize("k,variant", [(1, "warp"), (64, "warp"), (65, "cta"),

@@ -114,3 +114,71 @@ def test_unsupported_device_raises():
     z = torch.zeros((2, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.kmeans_assign_accumulate(z, torch.zeros(2, device="meta"), z)
+
+
+# (N, K, D): one point, D off every multiple of 4 and of 32, the smoke's
+# shapes, and K·D past the shared-memory slab
+_PLAN_SHAPES = [(1, 3, 1), (700, 7, 5), (1013, 9, 130), (100_000, 256, 64),
+                (1_000_000, 256, 64), (50_000, 1024, 128), (129, 1024, 3)]
+
+
+@pytest.mark.parametrize("n,k,d", _PLAN_SHAPES)
+def test_sweep_plan_gives_every_slab_entry_one_owner(n, k, d):
+    """Every (centre, column) sum, every count and the cost is owned by
+    exactly one walk thread, as the kernel assigns them."""
+    plan = K.kmeans_sweep_plan(n, k, d)
+    owners: dict = {}
+    for thread in range(plan.walk_threads):
+        for entry in plan.walk_entries(thread):
+            owners.setdefault(entry, []).append(thread)
+    want = ({("sum", c, col) for c in range(k) for col in range(d)}
+            | {("count", c) for c in range(k)} | {("cost",)})
+    assert set(owners) == want
+    assert all(len(t) == 1 for t in owners.values())
+    assert plan.slab_floats == len(want)
+
+
+@pytest.mark.parametrize("n,k,d", _PLAN_SHAPES)
+def test_sweep_plan_fits_the_card(n, k, d):
+    """Each launch's shared bytes fit one H100 CTA (232,448); the walk's
+    groups are whole warps within one CTA, and at most one group a centre;
+    the tiles cover N; the parts are :func:`kmeans_parts`'s and cover N in
+    order."""
+    plan = K.kmeans_sweep_plan(n, k, d)
+    for nbytes in (plan.assign_smem_bytes, plan.walk_smem_bytes,
+                   plan.reduce_smem_bytes):
+        assert 0 <= nbytes <= K.SMEM_BYTES == 232_448
+    assert plan.assign_smem_bytes == 93_440
+    tiles = 4 * 4 * 32 * (plan.walk_cols + 3)
+    assert plan.walk_smem_bytes == tiles + (
+        16 * -(-(k * d + k + 1) // 4) if plan.slab_in_smem else 0)
+    if 4 * (k * d + k + 1) <= 60_000:
+        assert plan.slab_in_smem
+    if 4 * (k * d + k + 1) > K.KMEANS_SLAB_SMEM_BYTES:
+        assert not plan.slab_in_smem
+    assert plan.walk_cols % 32 == 0 and plan.walk_cols >= min(d, 256)
+    assert plan.walk_threads <= K.KMEANS_WALK_THREADS
+    assert 1 <= plan.walk_groups <= k
+    assert plan.walk_groups & (plan.walk_groups - 1) == 0
+    assert 2 * plan.walk_groups * plan.walk_cols > min(
+        K.KMEANS_WALK_THREADS, k * plan.walk_cols)
+    assert plan.parts == K.kmeans_parts(n, k, d)
+    assert 0 < n <= plan.parts * plan.per
+    assert (plan.tiles - 1) * K.KMEANS_TILE_POINTS < n \
+        <= plan.tiles * K.KMEANS_TILE_POINTS
+
+
+def test_sweep_plan_depends_on_the_shape_alone():
+    """The same shape gives the same plan, with no device or data to read;
+    the smoke's shapes get the geometry the kernel was measured with."""
+    assert K.kmeans_sweep_plan(100_000, 256, 64) == \
+        K.kmeans_sweep_plan(100_000, 256, 64)
+    plan = K.kmeans_sweep_plan(1_000_000, 256, 64)
+    assert (plan.tiles, plan.stages, plan.parts, plan.walk_cols,
+            plan.walk_groups, plan.slab_in_smem) == (15625, 2, 1024, 64, 8, True)
+    wide = K.kmeans_sweep_plan(50_000, 1024, 128)
+    assert (wide.walk_cols, wide.walk_groups, wide.slab_in_smem) == \
+        (128, 4, False)
+    assert K.kmeans_sweep_plan(1, 3, 1).walk_groups == 2
+    with pytest.raises(ValueError):
+        K.kmeans_sweep_plan(0, 3, 1)

@@ -43,6 +43,7 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tune_gather_gramian.py")
+    yield os.path.join(REPO, "fp32_ceiling.py")
 
 
 def _imported_modules(path):
