@@ -49,9 +49,6 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``top_n_batch(how_many=10)`` excluding their training items,
            checked against an exact float64 scan (overlap >= 0.99); the
            counters are read after it;
-  profile  one more training iteration under ``torch.profiler``, with the
-           packed blocks' schedules as the trainer passes them (device time
-           by kernel, idle share);
   serve_flagship
            1,000,000 items × 50 features (seeded), ``top_n_batch`` timed
            at batch 1, 16 and 256, top-10, checked against an exact scan;
@@ -63,9 +60,16 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            launches of the C entry (20 per event pair; the same bits as the
            wrapper's) and through the wrapper, beside the plain version, the
            cross term's ``torch.matmul`` (the entry's ``library_ms``) and
-           the card's bound, and each profiled for one sweep (the profile
-           must list each of its three launches once); and at K = 1,024,
-           D = 128 (chunked centres, partial sums in device memory);
+           the card's bound; and at K = 1,024, D = 128 (chunked centres,
+           partial sums in device memory);
+  profile  one ``torch.profiler`` session, started straight after the
+           sweep's timing, with three windows back to back: one more
+           training iteration, with the packed blocks' schedules as the
+           trainer passes them, and one sweep at each of the two timed
+           shapes (device time by kernel, idle share); each sweep's window
+           must list each of its three launches once, and is printed in
+           the ``kmeans_kernel`` line (``profile``,
+           ``update_shape.profile``);
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
            the planted blobs through ``KMeansUpdate.build_model`` (the
@@ -76,13 +80,44 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            PMML served by ``KMeansServingModelManager`` (1,000 queries
            against a host float64 assign); a 10,000-line microbatch folded by
            ``KMeansSpeedModelManager`` and its ``UP`` lines applied to the
-           serving model;
+           serving model; and one ``KMeansUpdate.run_update`` on the same
+           lines (one candidate, 93 sweeps) published to a recording
+           producer, whose ``MODEL`` a fresh ``KMeansServingModelManager``
+           must hold as the promoted PMML's 256 clusters; the sweep's first
+           launch at each shape that run reached is kept and held against
+           the plain version after it;
   kmeans_train
            ``kmeans_train`` at 1,000,000 × 64, k = 256, 8 iterations, one
            run, twice (the second timed): point-iters/s, seeding and sweep
-           seconds apart.
+           seconds apart;
+  als_generation
+           one ALS batch generation on the same 1,000,000 lines:
+           ``ALSUpdate.run_update`` (time-ordered 10% hold-out, one
+           candidate, λ = 1, trained on the card at k = 50, 3 iterations,
+           α = 1, written as part files, evaluated by AUC; cut from two λ
+           candidates for time), promoted and published to a recording
+           producer; the candidate must have built and been evaluated on
+           the card, its AUC > 0.75, both ALS kernels launched
+           iterations × (user + item blocks) times
+           (counters set to 0 just before ``run_update``), one ``MODEL``
+           first, a ``Y`` ``UP`` per item before any ``X`` ``UP``, and one
+           ``X`` ``UP`` with its known items per user of the training split;
+           then a fresh ``ALSServingModelManager`` on the card consumes the
+           stream (fraction loaded 1.0) and its top-10 for 256 users,
+           known items excluded, must equal (ids, and scores bit for bit) a
+           model loaded straight from the promoted part files. Each ALS
+           kernel's first launch at each shape the generation reached is
+           kept (inputs and outputs) and held against its plain version
+           after ``run_update``. Host seconds
+           by stage: split, each candidate's prepare / pack / iterations /
+           part-file write / evaluation, promote, publish, consume, the
+           first top-N. It runs last: it is mostly host work.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
+(``paths``: the launches of each wrapper in the two generations' runs;
+``path_checks``: for each generation, one record per kernel and shape it
+launched at, that launch's output against the plain version on the same
+inputs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Each kernels-line entry's ``launches``
 is its kernel's count at its shape in the run of the path that reaches it
 (``K.SHAPE_LAUNCHES``): the ALS train and serve run, ``build_model``'s run
@@ -100,7 +135,10 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -110,8 +148,10 @@ from oryx_tpu_torch.common import config as oryx_config
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als import data as als_data
 from oryx_tpu_torch.models.als import evaluate
+from oryx_tpu_torch.models.als import pmml_codec as als_codec
 from oryx_tpu_torch.models.als import train as tr
-from oryx_tpu_torch.models.als.serving import ALSServingModel
+from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
+from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.kmeans import pmml_codec
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.serving import KMeansServingModelManager
@@ -155,6 +195,12 @@ INNER = 20
 # uniform in [−10, 10]^64, σ = 1), k = 256 with the reference's defaults
 KM_N, KM_D, KM_K, KM_ITERATIONS = 1_000_000, 64, 256, 8
 KM_BLOB_POINTS, KM_LINES, KM_MICROBATCH = 200_000, 100_000, 10_000
+
+# one ALS batch generation at the train phase's shape: one candidate (λ =
+# LAM), cut from a grid of two (λ 0.5 and 1) to keep the phase near 90 s;
+# two took 109 s of run_update on the H100, most of it the part-file
+# write and the evaluation's re-parse of each candidate
+GENERATION_TIMESTAMP_MS = 1_760_000_000_000
 
 
 class SmokeFailure(AssertionError):
@@ -287,9 +333,7 @@ def gg_entry(side, y, dtype, label):
     torch.cuda.synchronize()
     check(torch.equal(a, a2) and torch.equal(b, b2),
           f"gather_gramian {label}: two calls differ")
-    abs_err = max(float((a - pa).abs().max()), float((b - pb).abs().max()))
-    rel_err = max(float((a - pa).abs().max() / pa.abs().max()),
-                  float((b - pb).abs().max() / pb.abs().max()))
+    abs_err, rel_err = max_errs([(a, pa), (b, pb)])
     # the same rounded inputs on both sides, so only the summation order
     # differs: float32 sums over up to ~10^4 entries (a popular item's row)
     tol = 1e-4
@@ -499,8 +543,7 @@ def spd_entry(big_a, big_b, label, cta_fn):
     fx = spd_fused_form(big_a, big_b)
     exact = torch.linalg.solve(big_a.double(), big_b.double())
     torch.cuda.synchronize()
-    abs_err = float((x - px).abs().max())
-    rel_err = abs_err / float(px.abs().max())
+    abs_err, rel_err = max_errs([(x, px)])
     f64_err = {name: float((v.double() - exact).abs().max() / exact.abs().max())
                for name, v in (("kernel", x), ("plain", px),
                                ("reference_fused_step", fx))}
@@ -571,9 +614,9 @@ def _interval_union_us(intervals) -> float:
     return busy
 
 
-def profile_iteration(user_side, item_side, y):
-    """One more iteration (both halves) from the trained Y under
-    ``torch.profiler``."""
+def iteration_fn(user_side, item_side, y):
+    """One more iteration (both halves) from the trained Y, as a function
+    for ``device_profiles``."""
     yp = torch.zeros((item_side.padded_rows, FEATURES), device=y.device)
     yp[: y.shape[0]] = y
 
@@ -584,49 +627,73 @@ def profile_iteration(user_side, item_side, y):
             slot_chunk=side.slot_chunk, schedules=side.gg_schedules,
         )
 
-    return device_profile(lambda: half(item_side, half(user_side, yp)))
+    return lambda: half(item_side, half(user_side, yp))
 
 
-def device_profile(fn) -> dict:
-    """``fn`` once to warm up, then once under ``torch.profiler``: device
-    time by kernel, and the share of the call's host wall time in which no
-    kernel ran. A one-element fill runs first inside the profiler (the
-    tracer has been seen to drop the first kernel it would record) and is
-    left out: only device events that start inside the measured window
-    count."""
+WINDOW = "chip_smoke.window"
+
+
+def device_profiles(windows: dict) -> dict:
+    """Each function of ``windows`` once to warm up, then each once more,
+    back to back, in ONE ``torch.profiler`` session, each inside a window
+    of its own: per window, device time by kernel and the share of the
+    window's host wall time in which no kernel ran.
+
+    One session serves every window because on the H100 machines a session
+    begun some seconds after the previous one ended has recorded no device
+    events, and no later session of the process recorded any; how many
+    seconds differs from run to run (``profiler_gap.py``). A one-element
+    fill runs first inside the session (the tracer has been seen to drop
+    the first kernel it would record) and is left out: a device event
+    counts in the last window opened before it started."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for fn in windows.values():
+        fn()
     torch.cuda.synchronize()
+    walls_us = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
-        with record_function("chip_smoke.window"):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        for i, (name, fn) in enumerate(windows.items()):
+            with record_function(f"{WINDOW}:{i}"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls_us[name] = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    window = [e.time_range.start for e in events
-              if e.name == "chip_smoke.window"]
-    opened = min(window) if window else -float("inf")
+    opened = sorted((e.time_range.start, int(e.name.split(":")[1]))
+                    for e in events if e.name.startswith(WINDOW + ":")
+                    and e.device_type != DeviceType.CUDA)
+    names = list(windows)
+    spans: dict = {name: [] for name in names}
+    for e in events:
+        # the annotations' own device-side spans are left out
+        if e.device_type != DeviceType.CUDA or e.name.startswith(WINDOW):
+            continue
+        start = e.time_range.start
+        inside = [i for t, i in opened if t <= start]
+        if inside:
+            spans[names[inside[-1]]].append(e)
+    return {name: window_profile(spans[name], walls_us[name])
+            for name in names}
+
+
+def window_profile(events, wall_us: float) -> dict:
+    """Device time by kernel and idle share of one profiled window."""
+    if not events:
+        return {"device_time": "not measured", "wall_ms": wall_us / 1e3}
     by_name: dict = {}
     count: dict = {}
-    spans = []
     for e in events:
-        if (e.device_type != DeviceType.CUDA or e.time_range.start < opened
-                or e.name == "chip_smoke.window"):  # the annotation's own span
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0][:70]
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
         count[name] = count.get(name, 0) + 1
-    if not spans:
-        return {"device_time": "not measured", "wall_ms": wall_us / 1e3}
-    busy_us = _interval_union_us(spans)
+    busy_us = _interval_union_us(
+        [(e.time_range.start, e.time_range.end) for e in events])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     return {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
@@ -702,6 +769,321 @@ def serve_flagship(rng):
         out[f"b{batch_size}"] = {"median_s": med, "qps": batch_size / med,
                                  "p90_s": float(np.percentile(times, 90)),
                                  "overlap": ov}
+    return out
+
+
+# -- ALS generation ---------------------------------------------------------
+
+
+class RecordingProducer:
+    """An update-topic producer that records ``(key, message, headers)``."""
+
+    def __init__(self):
+        self.sent = []
+
+    def send(self, key, message, headers=None):
+        self.sent.append((key, message, headers))
+
+
+def aligned_copy(value):
+    """A contiguous copy of a tensor at the same offset from a 16-byte
+    boundary, so a kernel given the copy takes the same load path; any
+    other value as it is."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    off = (value.data_ptr() % 16) // value.element_size()
+    flat = torch.empty(value.numel() + off, dtype=value.dtype,
+                       device=value.device)
+    return flat[off:].view(value.shape).copy_(value)
+
+
+def copy_outputs(out):
+    return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
+
+
+def gg_key(args, kwargs) -> tuple:
+    y, scols = args[0], args[2]
+    return (kwargs["block"] + 1, *scols.shape, y.shape[1], str(y.dtype))
+
+
+def spd_key(args, kwargs) -> tuple:
+    return tuple(args[1].shape)
+
+
+def sweep_key(args, kwargs) -> tuple:
+    points, _, centers = args
+    return (*points.shape, centers.shape[0])
+
+
+class FirstLaunches:
+    """For the length of a ``with`` block, wraps kernel wrappers where a path
+    looks them up (``(module, name, key)`` each, ``key`` giving the shape
+    that ``K.SHAPE_LAUNCHES`` counts the launch under) and keeps, for the
+    first call at each shape, copies of its inputs and of what it returned:
+    the launches a path made, to hold against the plain versions after it.
+    Calls from several threads are recorded under a lock."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls: dict = {}
+        self.saved: list = []
+        self.lock = threading.Lock()
+
+    def _wrap(self, name, fn, key):
+        def recorded(*args, **kwargs):
+            shape = key(args, kwargs)
+            with self.lock:
+                first = (name, shape) not in self.calls
+                if first:
+                    self.calls[(name, shape)] = None
+            if not first:
+                return fn(*args, **kwargs)
+            inputs = ([aligned_copy(a) for a in args],
+                      {k: aligned_copy(v) for k, v in kwargs.items()})
+            out = fn(*args, **kwargs)
+            with self.lock:
+                self.calls[(name, shape)] = (*inputs, copy_outputs(out))
+            return out
+        return recorded
+
+    def __enter__(self):
+        for module, name, key in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+            setattr(module, name, self._wrap(name, fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+        self.saved.clear()
+        return False
+
+
+def max_errs(pairs) -> tuple[float, float]:
+    """The largest |output − plain| over (output, plain) pairs, and the
+    largest of each such difference over its plain output's largest
+    magnitude."""
+    diffs = [(float((o - p).abs().max()), float(p.abs().max())) for o, p in pairs]
+    return max(d for d, _ in diffs), max(d / m for d, m in diffs)
+
+
+def hold_path_launches(first: FirstLaunches, counted: dict, phase: str) -> list:
+    """Every shape at which ``phase``'s path launched a kernel, held against
+    the plain version on the inputs of its first launch there: the wrapper
+    called again on them must return the same bits as on the path, and
+    those must agree with the plain version within the kernel phases'
+    tolerances — 1e-4 of the plain output's largest magnitude for the
+    gather-Gramian and the SPD solve (float32 sums and eliminations in
+    another order), and for the sweep ``sweep_check``'s with near ties
+    allowed (the path's own centres: two may share a blob, so a point may
+    lie within a rounding of both). ``counted`` is ``K.SHAPE_LAUNCHES`` as
+    read just after the path; every shape counted there must have been
+    recorded."""
+    wanted = {(kernel.split(".")[0], shape) for kernel, shape in counted
+              if not kernel.endswith(".reduce")}
+    check(set(first.calls) == wanted,
+          f"{phase}: recorded shapes {sorted(first.calls)} are not the "
+          f"counted ones {sorted(wanted)}")
+    out = []
+    for (name, shape), (args, kwargs, path_out) in sorted(first.calls.items()):
+        label = f"{phase} {name} {shape}"
+        got = getattr(K, name)(*args, **kwargs)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        path_out = path_out if isinstance(path_out, tuple) else (path_out,)
+        check(all(torch.equal(g, p) for g, p in zip(got, path_out)),
+              f"{label}: the wrapper gives other bits than on the path")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{label}: non-finite output")
+        entry = {"kernel": name, "shape": list(shape),
+                 "path_launches": counted.get(
+                     (f"{name}.{K.spd_variant(shape[1])}"
+                      if name == "spd_solve_batched" else name, shape), 0)}
+        if name == "kmeans_assign_accumulate":
+            entry.update(sweep_check(*args, near_ties=True, label=label),
+                         tol=1e-4, cost_tol=1e-5)
+        else:
+            plain = (K.gather_gramian_accumulate_plain(*args,
+                                                       block=kwargs["block"])
+                     if name == "gather_gramian_accumulate"
+                     else (K.spd_solve_batched_plain(*args),))
+            abs_err, rel_err = max_errs(zip(got, plain))
+            check(rel_err < 1e-4, f"{label}: rel err {rel_err} >= 1e-4")
+            entry.update(max_abs_err=abs_err, max_rel_err=rel_err, tol=1e-4)
+        out.append(entry)
+    return out
+
+
+def known_items_of(lines) -> dict:
+    """Each user's items over ``user,item,...`` lines, sorted: what the
+    ``UP`` X messages carry."""
+    known: dict = {}
+    for ln in lines:
+        user, item = ln.split(",", 2)[:2]
+        known.setdefault(user, set()).add(item)
+    return {u: sorted(items) for u, items in known.items()}
+
+
+def read_part_files(path: Path):
+    ids, vecs = [], []
+    for id_, vec in als_codec.read_features(path):
+        ids.append(id_)
+        vecs.append(vec)
+    return ids, np.stack(vecs)
+
+
+def check_update_stream(sent, meta, train_users, known) -> dict:
+    """One ``MODEL`` (or ``MODEL-REF``) first, then a ``Y`` ``UP`` for every
+    item of the model before any ``X``, then one ``X`` ``UP`` for each user
+    of the training split with its known items (over all the lines)."""
+    keys = [k for k, _, _ in sent]
+    check(keys[0] in ("MODEL", "MODEL-REF")
+          and not ({"MODEL", "MODEL-REF"} & set(keys[1:])),
+          f"als_generation: not one model message first: {keys[:3]}")
+    check(set(keys[1:]) == {"UP"}, "als_generation: a non-UP after the model")
+    ups = [json.loads(m) for _, m, _ in sent[1:]]
+    kinds = [u[0] for u in ups]
+    n_y = kinds.count("Y")
+    check(kinds == ["Y"] * n_y + ["X"] * (len(kinds) - n_y),
+          "als_generation: an X UP came before the last Y UP")
+    check([u[1] for u in ups[:n_y]] == meta["y_ids"],
+          "als_generation: Y UPs are not the model's items in order")
+    x_ups = ups[n_y:]
+    check([u[1] for u in x_ups] == meta["x_ids"]
+          and set(meta["x_ids"]) == train_users,
+          "als_generation: X UPs are not one per user of the training split")
+    check(all(u[3] == known[u[1]] for u in x_ups),
+          "als_generation: an X UP's known items differ from the user's items")
+    check(all(len(u[2]) == meta["features"] for u in ups),
+          "als_generation: a vector of the wrong width")
+    return {"model": 1, "y_ups": n_y, "x_ups": len(x_ups)}
+
+
+def als_generation_phase(lines, rng) -> dict:
+    """One ALS batch generation through its entry points: ``ALSUpdate
+    .run_update`` (its candidate trained on the card, evaluated, promoted
+    and published to a recording producer), then a fresh
+    ``ALSServingModelManager`` on the card consuming the whole stream, and
+    its top-10 for 256 users held against a model loaded straight from the
+    promoted part files (see the module docstring)."""
+    conf = oryx_config.overlay_on({
+        "oryx.ml.eval.test-fraction": TEST_FRACTION,
+        "oryx.ml.eval.candidates": 1,
+        "oryx.als.hyperparams.lambda": LAM,
+        "oryx.als.hyperparams.features": FEATURES,
+        "oryx.als.hyperparams.alpha": ALPHA,
+        "oryx.als.iterations": ITERATIONS,
+    }, oryx_config.get_default())
+    update = ALSUpdate(conf)
+    msgs = [KeyMessage(None, ln) for ln in lines]
+    producer = RecordingProducer()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="oryx-generation-") as model_dir:
+        K.reset_launches()
+        with FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                            (tr, "spd_solve_batched", spd_key)]) as first:
+            t0 = time.perf_counter()
+            update.run_update(None, GENERATION_TIMESTAMP_MS, msgs, [],
+                              model_dir, producer)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        counted = dict(K.SHAPE_LAUNCHES)
+        report = update.report
+        cands = report["candidates"]
+        check(len(cands) == 1 and all(
+            "failed" not in c and "eval" in c for c in cands.values()),
+              f"als_generation: not every candidate built and evaluated: "
+              f"{ {n: c.get('failed') for n, c in cands.items()} }")
+        check(all(c["device"].startswith("cuda") for c in cands.values()),
+              "als_generation: a candidate was not built on the card")
+        aucs = {n: c["eval"] for n, c in cands.items()}
+        best = report["best"]
+        check(aucs[best] == max(aucs.values()) and aucs[best] > 0.75,
+              f"als_generation: promoted {best} of AUCs {aucs}")
+        expected = sum(ITERATIONS * (c["blocks"]["user"] + c["blocks"]["item"])
+                       for c in cands.values())
+        for wrapper in ALS_WRAPPERS:
+            check(launches[wrapper] == expected,
+                  f"als_generation: {launches[wrapper]} {wrapper} launches, "
+                  f"expected {expected} (iterations x blocks, both candidates)")
+        held = hold_path_launches(first, counted, "als_generation")
+        promoted = Path(model_dir) / str(GENERATION_TIMESTAMP_MS)
+        meta = als_codec.pmml_to_meta(pmmlutils.read(promoted / "model.pmml"))
+        # the lines' timestamps are their positions, so the time-ordered
+        # training split is the first 90%
+        n_train = int(round(len(lines) * (1.0 - TEST_FRACTION)))
+        known = known_items_of(lines)
+        train_known = known_items_of(lines[:n_train])
+        counts = check_update_stream(producer.sent, meta, set(train_known), known)
+        train_items = {i for items in train_known.values() for i in items}
+        check(set(meta["y_ids"]) == train_items,
+              f"als_generation: {counts['y_ups']} Y UPs for the "
+              f"{len(train_items)} items of the training split")
+
+        manager = ALSServingModelManager(conf)
+        t0 = time.perf_counter()
+        manager.consume(KeyMessage(k, m) for k, m, _ in producer.sent)
+        consume_s = time.perf_counter() - t0
+        model = manager.get_model()
+        fraction = model.get_fraction_loaded()
+        check(fraction == 1.0, f"als_generation: fraction loaded {fraction}")
+
+        x_ids, x = read_part_files(promoted / meta["x_dir"])
+        y_ids, y = read_part_files(promoted / meta["y_dir"])
+        users = [x_ids[i] for i in rng.choice(len(x_ids), 256, replace=False)]
+        direct = state.serving_model(x, y, x_ids, y_ids,
+                                     known_items={u: known[u] for u in users})
+        qs = np.stack([model.get_user_vector(u) for u in users])
+        check(np.array_equal(qs, np.stack([direct.get_user_vector(u)
+                                           for u in users])),
+              "als_generation: user vectors differ after the JSON round trip")
+        excluded = [model.get_known_items(u) for u in users]
+        check(excluded == [direct.get_known_items(u) for u in users],
+              "als_generation: known items differ")
+        t0 = time.perf_counter()
+        res = model.top_n_batch(qs, 10, excluded=excluded)
+        first_top_n_s = time.perf_counter() - t0
+        want = direct.top_n_batch(qs, 10, excluded=excluded)
+        check(torch.equal(model.y_snapshot().mat, direct.y_snapshot().mat),
+              "als_generation: the served Y differs from the part files'")
+        check([[i for i, _ in r] for r in res] == [[i for i, _ in r] for r in want]
+              and all(len(r) == 10 for r in res),
+              "als_generation: top-10 ids differ from the directly loaded model's")
+        check(torch.equal(torch.tensor([[v for _, v in r] for r in res]),
+                          torch.tensor([[v for _, v in r] for r in want])),
+              "als_generation: top-10 scores differ from the directly loaded model's")
+        for r, ex in zip(res, excluded):
+            check(not ({i for i, _ in r} & ex), "als_generation: a known item came back")
+
+    stages = {"split_s": report["split_s"]}
+    for name, c in sorted(cands.items()):
+        stages[f"candidate_{name}"] = {
+            key: c[key] for key in (
+                "hyperparameters", "build_s", "prepare_s", "train_s", "pack_s",
+                "iter_s", "write_s", "evaluate_s", "evaluate_load_s",
+                "evaluate_parse_s", "evaluate_score_s", "eval", "blocks")}
+    publish_s = report["publish_model_s"] + report["publish_additional_s"]
+    device_iter_s = sum(sum(c["iter_s"]) for c in cands.values())
+    out.update(
+        combos=report["combos"], best=best, aucs=aucs, stages=stages,
+        promote_s=report["promote_s"],
+        publish_model_s=report["publish_model_s"],
+        publish_y_s=report["publish_y_s"],
+        known_items_s=report["known_items_s"],
+        publish_x_s=report["publish_x_s"],
+        publish_s=publish_s, consume_s=consume_s,
+        first_top_n_s=first_top_n_s, run_update_s=report["run_update_s"],
+        run_update_wall_s=run_s,
+        model_to_servable_s=publish_s + consume_s,
+        device_iter_share=device_iter_s / run_s,
+        published=report["published"],
+        model_bytes=len(producer.sent[0][1].encode("utf-8")),
+        messages=counts, fraction_loaded=fraction, launches=launches,
+        expected_launches=expected,
+        shape_launches={launch_key(*key): n for key, n in counted.items()},
+        held_against_plain=held, top_n_users=len(users))
     return out
 
 
@@ -795,10 +1177,9 @@ def sweep_bare_launch(points, weights, centers):
 SWEEP_LAUNCHES = ("assign_kernel", "partial_kernel", "reduce_kernel")
 
 
-def sweep_profile(args, label: str) -> dict:
-    """One sweep through the wrapper under ``torch.profiler``; fails unless
-    the profile lists each of the sweep's three launches once."""
-    prof = device_profile(lambda: K.kmeans_assign_accumulate(*args))
+def sweep_profile(prof: dict, label: str) -> dict:
+    """One sweep's window of ``device_profiles``; fails unless it lists each
+    of the sweep's three launches once."""
     launches = prof.get("kernel_launches", {})
     for kernel in SWEEP_LAUNCHES:
         seen = sum(c for name, c in launches.items() if name.startswith(kernel))
@@ -811,7 +1192,7 @@ def sweep_timing(points, weights, centers, label: str) -> dict:
     """The sweep timed by bare launches of its C entry (20 per CUDA-event
     pair) and through the wrapper (one call per pair), beside its plain
     version, the cross term's ``torch.matmul`` (TF32 off) and the card's
-    bound for (N, D, K); and one sweep profiled per launch."""
+    bound for (N, D, K). ``device_profiles`` profiles it later."""
     n, d = points.shape
     k = centers.shape[0]
     args = (points, weights, centers)
@@ -832,7 +1213,6 @@ def sweep_timing(points, weights, centers, label: str) -> dict:
                             reps=5, warmup=1),
         "cross_term_matmul_ms": time_ms(lambda: points @ centers.T),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "profile": sweep_profile(args, label),
     }
 
 
@@ -863,8 +1243,9 @@ def sweep_entry(label, case, timing) -> dict:
 
 def kmeans_kernel_phase(dev, rng):
     """The sweep kernel in its four cases; the 1M × 64 case and the update
-    path's 100k × 64 case timed and profiled. Returns the phase's record,
-    the kernels-line entries (100k, then 1M) and the 1M × 64 points."""
+    path's 100k × 64 case timed. Returns the phase's record, the
+    kernels-line entries (100k, then 1M), the 1M × 64 points and the two
+    timed cases' arguments by label, for ``device_profiles``."""
     pts = torch.from_numpy(
         rng.standard_normal((KM_N, KM_D), dtype=np.float32)).to(dev)
     ones = torch.ones(KM_N, device=dev)
@@ -894,7 +1275,7 @@ def kmeans_kernel_phase(dev, rng):
                sweep_entry("1M x 64, K=256", cases[0], timing)]
     record = {"cases": cases, **timing, "update_shape": update_timing,
               "wide_kernel_ms": wide_ms}
-    return record, entries, pts
+    return record, entries, pts, {"1M x 64": args, "100k x 64": update_args}
 
 
 def csv_lines(points: np.ndarray) -> list:
@@ -989,11 +1370,55 @@ def kmeans_update_phase(dev, rng) -> dict:
         for c in served), "kmeans speed: serving does not hold the speed model")
     check(sum(c.count for c in served) == KM_LINES + KM_MICROBATCH,
           "kmeans speed: counts do not add up")
+    generation = kmeans_generation(conf, train, runs * (iterations + 1))
     return {"lines": KM_LINES, "features": KM_D, "k": k, "runs": runs,
             "iterations": iterations, "launches": launches,
             "shape_launches": by_shape,
             "scores": scores, "sse_vs_sweep_cost_rel": sse_rel,
-            "updates": len(ups), **timing}
+            "updates": len(ups), "generation": generation, **timing}
+
+
+def kmeans_generation(conf, lines, expected_sweeps: int) -> dict:
+    """The same k-means path behind ``MLUpdate``: one ``run_update`` on the
+    lines (one candidate, 10% held out), published to a recording producer
+    and consumed by ``KMeansServingModelManager``, whose model must hold the
+    promoted PMML's clusters."""
+    update = KMeansUpdate(conf)
+    producer = RecordingProducer()
+    with tempfile.TemporaryDirectory(prefix="oryx-kmeans-generation-") as model_dir:
+        K.reset_launches()
+        with FirstLaunches([(K, "kmeans_assign_accumulate", sweep_key)]) as first:
+            t0 = time.perf_counter()
+            update.run_update(None, GENERATION_TIMESTAMP_MS, lines, [],
+                              model_dir, producer)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        sweeps = K.LAUNCHES["kmeans_assign_accumulate"]
+        counted = dict(K.SHAPE_LAUNCHES)
+        check(sweeps == expected_sweeps, f"kmeans generation: {sweeps} sweep "
+              f"launches, expected {expected_sweeps}")
+        held = hold_path_launches(first, counted, "kmeans_generation")
+        cands = update.report["candidates"]
+        check(len(cands) == 1 and all("failed" not in c for c in cands.values()),
+              f"kmeans generation: candidates {cands}")
+        check([k for k, _, _ in producer.sent] == ["MODEL"],
+              "kmeans generation: not one MODEL published")
+        promoted = pmmlutils.read(
+            Path(model_dir) / str(GENERATION_TIMESTAMP_MS) / "model.pmml")
+    serving = KMeansServingModelManager(conf)
+    serving.consume(KeyMessage(k, m) for k, m, _ in producer.sent)
+    served = serving.get_model().clusters
+    want = pmml_codec.read(promoted)
+    check(len(served) == KM_K and [c.id for c in served] == [c.id for c in want]
+          and all(np.array_equal(c.center, w.center) for c, w in zip(served, want)),
+          "kmeans generation: the served clusters differ from the promoted PMML's")
+    cand = next(iter(cands.values()))
+    return {"run_update_s": run_s, "split_s": update.report["split_s"],
+            "build_s": cand["build_s"], "evaluate_s": cand["evaluate_s"],
+            "eval": cand["eval"], "publish_model_s": update.report["publish_model_s"],
+            "model_bytes": len(producer.sent[0][1].encode("utf-8")),
+            "clusters": len(served), "launches": sweeps,
+            "held_against_plain": held}
 
 
 def kmeans_train_phase(points) -> dict:
@@ -1133,15 +1558,27 @@ def main() -> int:
     check(n == expected, f"spd_solve_batched: {n} launches of {kernel} on the "
           f"main path, expected {expected}: {als_shape_launches}")
 
-    emit("profile", **profile_iteration(user_side, item_side, y))
     emit("serve_flagship", **serve_flagship(rng))
 
-    record, km_entries, km_points = kmeans_kernel_phase(dev, rng)
+    record, km_entries, km_points, sweep_args = kmeans_kernel_phase(dev, rng)
+    # every profiled window in one profiler session, straight after the
+    # sweep's timing: see device_profiles
+    windows = {"als_iteration": iteration_fn(user_side, item_side, y)}
+    for label, args in sweep_args.items():
+        windows[label] = lambda a=args: K.kmeans_assign_accumulate(*a)
+    profiles = device_profiles(windows)
+    emit("profile", **profiles["als_iteration"])
+    record["profile"] = sweep_profile(profiles["1M x 64"], "1M x 64")
+    record["update_shape"]["profile"] = sweep_profile(profiles["100k x 64"],
+                                                      "100k x 64")
     emit("kmeans_kernel", **record)
     km_update = kmeans_update_phase(dev, rng)
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
+    # last: mostly host work, and nothing after it is profiled
+    generation = als_generation_phase(lines, rng)
+    emit("als_generation", **generation)
 
     # each entry's launches at its shape, from the run of the path that
     # reaches it: the ALS run above, build_model (100k x 64), kmeans_train's
@@ -1168,7 +1605,21 @@ def main() -> int:
     for source in {e["source"] for e in entries}:
         check(any(e["on_main_path"] for e in entries if e["source"] == source),
               f"{source}: not launched on its path")
-    print(json.dumps({"kernels": entries, "gpu": smi}), flush=True)
+    # each later path's own launch counts, read just after it ran
+    paths = {
+        "als_generation": {w: generation["launches"][w] for w in ALS_WRAPPERS},
+        "kmeans_generation": {"kmeans_assign_accumulate":
+                              km_update["generation"]["launches"]},
+    }
+    # each later path's launches held against the plain versions, one
+    # record per shape the path launched at
+    path_checks = {
+        "als_generation": generation["held_against_plain"],
+        "kmeans_generation": km_update["generation"]["held_against_plain"],
+    }
+    print(json.dumps({"kernels": entries, "paths": paths,
+                      "path_checks": path_checks, "gpu": smi}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

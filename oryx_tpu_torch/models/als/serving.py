@@ -1,20 +1,33 @@
 """ALS serving model: device-resident item factors answering top-N queries.
 
-The port of the reference's ``ALSServingModel`` (``models/als/serving.py``)
-for ``device_dtype="float32"`` on one device: Y lives on the device as one
-dense float32 matrix, rebuilt from the host store when the store changed,
-and a batch of queries is answered by ONE ``scores = Q @ Yᵀ`` product,
-known-item masking, and ``torch.topk``. The reference leaves this scan to
-XLA outside any Pallas kernel (matmul + ``approx_max_k``), so it is plain
-torch here too; the float32 product runs without TF32.
+The port of the reference's ``ALSServingModel`` and
+``ALSServingModelManager`` (``models/als/serving.py``) for float32 scoring on
+one device: Y lives on the device as one dense float32 matrix, rebuilt from
+the host store when the store changed, and a batch of queries is answered by
+ONE ``scores = Q @ Yᵀ`` product, known-item masking, and ``torch.topk``. The
+reference leaves this scan to XLA outside any Pallas kernel (matmul +
+``approx_max_k``), so it is plain torch here too; the float32 product runs
+without TF32. ``device_dtype="auto"`` resolves to float32, the reference's
+own rule off a TPU.
+
+The manager consumes the update topic as the reference's does: ``MODEL`` /
+``MODEL-REF`` with new features builds a new model with its stores
+presized and the expected ids set; with the same features it retains what
+the new model names or what was written since the last handoff;
+``UP ["X"|"Y", id, vector(, known items)]`` sets one vector.
 
 Not ported yet: LSH sampling (``sample_rate < 1``), bfloat16 and int8
-scoring copies, the IVF index, sharded serving, the model manager and
-cost/metrics accounting.
+scoring copies, the IVF index, sharded serving, the staged double-buffer
+swap (``precompile-batches`` with ``prewarm-swap``), the YᵀY solver
+pre-trigger (it needs ``ops/solver.py``), the rescorer, and cost/metrics
+accounting. The manager raises at construction on a setting that would
+need one of them.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import math
 import threading
 from typing import Callable, Sequence
@@ -22,8 +35,13 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.ml.mlupdate import read_pmml_from_update_key_message
+from oryx_tpu_torch.models.als import pmml_codec
 from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
+
+log = logging.getLogger(__name__)
 
 
 def _round_up_pow2(n: int) -> int:
@@ -81,16 +99,21 @@ class _YSnapshot:
         return len(self.ids)
 
 
-class ALSServingModel:
+def _check_supported(sample_rate: float, device_dtype: str) -> None:
+    """Raise on the serving settings the port does not have yet."""
+    if sample_rate < 1.0:
+        raise NotImplementedError(
+            "LSH sampling (sample_rate < 1) is not ported yet")
+    if device_dtype not in ("auto", "float32"):
+        raise NotImplementedError(
+            f"the port serves device_dtype 'auto' or 'float32' (both score "
+            f"in float32), not {device_dtype!r}")
+
+
+class ALSServingModel(ServingModel):
     def __init__(self, features: int, implicit: bool, sample_rate: float = 1.0,
-                 device_dtype: str = "float32", device=None):
-        if sample_rate < 1.0:
-            raise NotImplementedError(
-                "LSH sampling (sample_rate < 1) is not ported yet")
-        if device_dtype != "float32":
-            raise NotImplementedError(
-                f"the port serves device_dtype='float32' only, not "
-                f"{device_dtype!r}")
+                 device_dtype: str = "auto", device=None):
+        _check_supported(sample_rate, device_dtype)
         self.features = features
         self.implicit = implicit
         self.device = resolve(device)
@@ -98,23 +121,29 @@ class ALSServingModel:
         self.y = FeatureVectorStore()
         self.known_items: dict[str, set[str]] = {}
         self._known_lock = threading.Lock()
+        self.expected_user_ids: set[str] = set()
+        self.expected_item_ids: set[str] = set()
         self._snapshot: "_YSnapshot | None" = None
         self._snap_lock = threading.Lock()
 
     # -- vector + known-item bookkeeping ------------------------------------
     def set_user_vector(self, user: str, vec) -> None:
         self.x.set_vector(user, vec)
+        self.expected_user_ids.discard(user)
 
     def set_item_vector(self, item: str, vec) -> None:
         self.y.set_vector(item, vec)
+        self.expected_item_ids.discard(item)
 
     def bulk_load_users(self, ids, matrix) -> None:
         """Whole-matrix X handoff."""
         self.x.bulk_load(ids, matrix)
+        self.expected_user_ids.difference_update(ids)
 
     def bulk_load_items(self, ids, matrix) -> None:
         """Whole-matrix Y handoff."""
         self.y.bulk_load(ids, matrix)
+        self.expected_item_ids.difference_update(ids)
 
     def get_user_vector(self, user: str):
         return self.x.get_vector(user)
@@ -135,6 +164,26 @@ class ALSServingModel:
 
     def all_item_ids(self) -> list:
         return self.y.ids()
+
+    def retain_recent_and_user_ids(self, ids) -> None:
+        self.x.retain_recent_and_ids(set(ids))
+
+    def retain_recent_and_item_ids(self, ids) -> None:
+        self.y.retain_recent_and_ids(set(ids))
+
+    def retain_recent_and_known_items(self, users) -> None:
+        keep = set(users)
+        with self._known_lock:
+            for u in list(self.known_items):
+                if u not in keep:
+                    del self.known_items[u]
+
+    def get_fraction_loaded(self) -> float:  # ALSServingModel.java:396
+        total = len(self.expected_user_ids) + len(self.expected_item_ids)
+        total += self.x.size() + self.y.size()
+        if total == 0:
+            return 1.0
+        return (self.x.size() + self.y.size()) / total
 
     # -- device snapshot ----------------------------------------------------
     def y_snapshot(self) -> _YSnapshot:
@@ -272,3 +321,73 @@ class ALSServingModel:
         if rescore is not None:
             out.sort(key=lambda t: -t[1])
         return out
+
+
+class ALSServingModelManager(AbstractServingModelManager):
+    """The update-topic consumer behind ALS serving; its model lives on
+    ``device`` (``None``: the CUDA card)."""
+
+    def __init__(self, config, device=None):
+        super().__init__(config)
+        self.sample_rate = config.get_float("oryx.als.sample-rate")
+        self.device_dtype = config.get_string("oryx.serving.device-dtype", "auto")
+        _check_supported(self.sample_rate, self.device_dtype)
+        for key, what in (
+                ("oryx.serving.compute.sharded", "sharded serving"),
+                ("oryx.serving.index.enabled", "the IVF index")):
+            if config.get_bool(key, False):
+                raise NotImplementedError(f"{key}: {what} is not ported yet")
+        if (config.get_bool("oryx.serving.compute.precompile-batches", False)
+                and config.get_bool("oryx.compile.prewarm-swap", True)):
+            raise NotImplementedError(
+                "oryx.serving.compute.precompile-batches with "
+                "oryx.compile.prewarm-swap: the staged model swap is not "
+                "ported yet")
+        self.device = resolve(device)
+        self.model: "ALSServingModel | None" = None
+
+    def get_model(self) -> "ALSServingModel | None":
+        return self.model
+
+    def consume_key_message(self, key: str, message: str) -> None:
+        if key == "UP":
+            model = self.model
+            if model is None:
+                return
+            update = json.loads(message)
+            kind, id_, vec = update[0], update[1], np.asarray(update[2], dtype=np.float32)
+            if kind == "X":
+                model.set_user_vector(id_, vec)
+                if len(update) > 3:
+                    model.add_known_items(id_, update[3])
+            elif kind == "Y":
+                model.set_item_vector(id_, vec)
+            else:
+                raise ValueError(f"bad update type: {kind}")
+        elif key in ("MODEL", "MODEL-REF"):
+            pmml = read_pmml_from_update_key_message(key, message)
+            meta = pmml_codec.pmml_to_meta(pmml)
+            features = meta["features"]
+            current = self.model
+            if current is None or current.features != features:
+                new_model = ALSServingModel(
+                    features, meta["implicit"], self.sample_rate,
+                    device_dtype=self.device_dtype, device=self.device,
+                )
+                # the handoff meta names every expected row: presize the
+                # stores so the fill skips doubling-growth copies
+                new_model.x.reserve(len(meta["x_ids"]))
+                new_model.y.reserve(len(meta["y_ids"]))
+                new_model.expected_user_ids = set(meta["x_ids"])
+                new_model.expected_item_ids = set(meta["y_ids"])
+                self.model = new_model
+                log.info("new serving model generation (features=%d)", features)
+            else:
+                m = current
+                m.retain_recent_and_user_ids(meta["x_ids"])
+                m.retain_recent_and_item_ids(meta["y_ids"])
+                m.retain_recent_and_known_items(meta["x_ids"])
+                m.expected_user_ids = set(meta["x_ids"]) - set(m.x.ids())
+                m.expected_item_ids = set(meta["y_ids"]) - set(m.y.ids())
+        else:
+            raise ValueError(f"bad key: {key}")

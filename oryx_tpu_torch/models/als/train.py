@@ -507,7 +507,9 @@ def als_train(
     the critical path), ``pack_user_s``/``pack_item_s``/``pack_wait_s``,
     and ``iter_s``, the seconds of each iteration (measured by
     synchronising the device at iteration ends, which only a timed call
-    does; the first also holds whatever of the item pack it waited for).
+    does; the first also holds whatever of the item pack it waited for),
+    and ``blocks``, each side's row-block count (a kernel launch per block
+    and half-iteration, on the card).
 
     ``mesh``, ``row_axis``, ``layout_cache`` and ``checkpointer`` are the
     reference's multi-device, layout-reuse and checkpoint arguments; the
@@ -598,6 +600,8 @@ def als_train(
             # much of the item pack the first user half did not hide
             timings["pack_s"] = pack_user_s + wait_s
             timings["iter_s"] = iter_s
+            timings["blocks"] = {"user": user_side.n_blocks,
+                                 "item": item_side.n_blocks}
         return x[:n_users], y[:n_items]
     finally:
         # JOIN the worker on every exit: an orphaned item pack must not

@@ -1,8 +1,9 @@
 """k-means batch update: build and score a clustering model.
 
 The port of the JAX package's ``oryx_tpu/models/kmeans/update.py``
-(KMeansUpdate.java:60-234 in the original Oryx), without the ``MLUpdate``
-harness around it (candidate fan-out and publish are not ported yet):
+(KMeansUpdate.java:60-234 in the original Oryx), the :class:`MLUpdate`
+implementation for clustering (``run_update`` picks, promotes and publishes
+the candidates):
 
   * hyperparameter k from ``oryx.kmeans.hyperparams.k``;
   * datum lines parsed through :class:`InputSchema` into dense numeric
@@ -25,6 +26,7 @@ import numpy as np
 
 from oryx_tpu_torch.common import rand, textutils
 from oryx_tpu_torch.ml import param as hp
+from oryx_tpu_torch.ml.mlupdate import MLUpdate
 from oryx_tpu_torch.models import pmml_common
 from oryx_tpu_torch.models.kmeans import evaluate as kmeval
 from oryx_tpu_torch.models.kmeans import pmml_codec
@@ -37,12 +39,11 @@ log = logging.getLogger(__name__)
 EVAL_STRATEGIES = ("SILHOUETTE", "DAVIES_BOULDIN", "DUNN", "SSE")
 
 
-class KMeansUpdate:
+class KMeansUpdate(MLUpdate):
     """Trains on ``device`` (``None``: the CUDA card)."""
 
     def __init__(self, config, device=None):
-        self.config = config
-        self.device = device
+        super().__init__(config, device=device)
         self.initialization_strategy = config.get_string(
             "oryx.kmeans.initialization-strategy"
         )
@@ -84,7 +85,8 @@ class KMeansUpdate:
         return np.stack(vectors)
 
     # -- train (buildModel:107-122) -----------------------------------------
-    def build_model(self, context, train_data, hyper_parameters, candidate_path: Path):
+    def build_model(self, context, train_data, hyper_parameters,
+                    candidate_path: Path, device=None):
         k = int(hyper_parameters[0])
         if k <= 0:
             raise ValueError(f"k must be positive: {k}")
@@ -98,7 +100,7 @@ class KMeansUpdate:
             runs=self.runs,
             init=self.initialization_strategy,
             generator=rand.torch_generator(),
-            device=self.device,
+            device=self.device if device is None else device,
         )
         clusters = [
             ClusterInfo(i, centers[i], int(counts[i])) for i in range(len(centers))

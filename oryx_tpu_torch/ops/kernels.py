@@ -30,6 +30,7 @@ import ctypes
 import dataclasses
 import functools
 import logging
+import threading
 
 import torch
 
@@ -49,20 +50,30 @@ LAUNCHES = {"gather_gramian_accumulate": 0, "spd_solve_batched": 0,
 #: ``str(y.dtype)``), ``(B, k)`` for the SPD solve and ``(N, D, K)`` for the
 #: sweep.
 SHAPE_LAUNCHES: dict = {}
+# candidate builds launch from several host threads: every count is a
+# read-modify-write, so each takes this lock
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    SHAPE_LAUNCHES.clear()
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        SHAPE_LAUNCHES.clear()
 
 
 def _count(name: str, shape: tuple, kernel: "str | None" = None) -> None:
-    LAUNCHES[name] += 1
-    _count_shape(kernel or name, shape)
+    with _launch_lock:
+        LAUNCHES[name] += 1
+        _add_shape(kernel or name, shape)
 
 
 def _count_shape(kernel: str, shape: tuple) -> None:
+    with _launch_lock:
+        _add_shape(kernel, shape)
+
+
+def _add_shape(kernel: str, shape: tuple) -> None:
     key = (kernel, shape)
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 

@@ -14,6 +14,8 @@ on the CPU.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -468,3 +470,69 @@ def test_kmeans_train_on_the_card_matches_the_cpu(cuda_device):
         assert K.LAUNCHES["kmeans_assign_accumulate"] == 2 * 4
         assert centers.shape == (32, 16) and counts.sum() == len(pts)
         assert np.isfinite(centers).all()
+
+
+def _als_lines(rng, n_users, n_items, per_user):
+    """``user,item,1,ts`` lines: each user's top items under planted rank-3
+    preferences, timestamps shuffled."""
+    scores = rng.standard_normal((n_users, 3)) @ rng.standard_normal((3, n_items))
+    pairs = [(u, i) for u in range(n_users)
+             for i in np.argsort(-scores[u])[:per_user]]
+    ts = rng.permutation(len(pairs)) * 1000
+    return [f"u{u},i{i},1,{t}" for (u, i), t in zip(pairs, ts.tolist())]
+
+
+@pytest.mark.cuda
+def test_als_generation_on_the_card_matches_the_cpu(cuda_device, monkeypatch,
+                                                    tmp_path):
+    """One small ``ALSUpdate.run_update`` (two λ candidates, k = 50, 2
+    iterations, 4 row blocks a side) on the card and with
+    ``device="cpu"``, from the same test seed: the same keys, ids, order
+    and known items; vectors within relative 1e-4 (the card-vs-CPU bound
+    of the trainer test above); each candidate launched both ALS kernels
+    once per row block per iteration. On the CPU the trainer takes the
+    kernels' plain versions, as the card-vs-CPU trainer test does."""
+    from oryx_tpu_torch.api.keymessage import KeyMessage
+    from oryx_tpu_torch.common import config, rand
+    from oryx_tpu_torch.models.als.update import ALSUpdate
+
+    rng = np.random.default_rng(SEED + 3)
+    msgs = [KeyMessage(None, ln) for ln in _als_lines(rng, 900, 400, 12)]
+    conf = config.overlay_on(
+        {"oryx.als.iterations": 2, "oryx.als.hyperparams.features": 50,
+         "oryx.als.hyperparams.lambda": [0.1, 1.0],
+         "oryx.ml.eval.candidates": 2,
+         "oryx.ml.eval.hyperparam-search": "grid"}, config.get_default())
+    monkeypatch.setattr(tr, "_even_block", lambda n, k, ndev, block: -(-n // 4))
+    runs = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        if device == "cpu":
+            monkeypatch.setattr(tr, "_resolve_paths", lambda *a: (True, True))
+        rand.use_test_seed()
+        K.reset_launches()
+        sent = []
+        update = ALSUpdate(conf, device=device)
+        producer = type("P", (), {"send": lambda self, k, m, headers=None:
+                                  sent.append((k, m))})()
+        update.run_update(None, 7, msgs, [], str(tmp_path / name), producer)
+        runs[name] = (update.report, sent, dict(K.LAUNCHES))
+    (report, sent, launches), (cpu_report, cpu_sent, cpu_launches) = (
+        runs["card"], runs["cpu"])
+    cands = report["candidates"].values()
+    assert len(cands) == 2 and all("failed" not in c for c in cands)
+    assert all(c["device"].startswith("cuda") for c in cands)
+    want = sum(2 * (c["blocks"]["user"] + c["blocks"]["item"]) for c in cands)
+    assert all(c["blocks"] == {"user": 4, "item": 4} for c in cands)
+    for kernel in ("gather_gramian_accumulate", "spd_solve_batched"):
+        assert launches[kernel] == want and cpu_launches[kernel] == 0
+    assert report["combos"] == cpu_report["combos"]
+    assert report["best"] == cpu_report["best"]
+    assert [k for k, _ in sent] == [k for k, _ in cpu_sent]
+    assert sent[0][0] == "MODEL" and len(sent) > 1000
+    ups = [json.loads(m) for _, m in sent[1:]]
+    cpu_ups = [json.loads(m) for _, m in cpu_sent[1:]]
+    assert [u[:2] + u[3:] for u in ups] == [u[:2] + u[3:] for u in cpu_ups]
+    for kind in ("X", "Y"):
+        got = np.array([u[2] for u in ups if u[0] == kind])
+        ref = np.array([u[2] for u in cpu_ups if u[0] == kind])
+        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ast
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ from oryx_tpu_torch.common import config
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als import train
 from oryx_tpu_torch.models.als.data import RatingBatch
-from oryx_tpu_torch.models.als.serving import ALSServingModel
+from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
+from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
 from oryx_tpu_torch.ops import vectormath
@@ -44,6 +46,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tune_gather_gramian.py")
     yield os.path.join(REPO, "fp32_ceiling.py")
+    yield os.path.join(REPO, "profiler_gap.py")
 
 
 def _imported_modules(path):
@@ -90,6 +93,20 @@ def _entry_points():
          "oryx.kmeans.iterations": 1, "oryx.kmeans.runs": 1},
         config.get_default())
     lines = [KeyMessage(None, ",".join(map(str, p))) for p in points.tolist()]
+    als_conf = config.overlay_on(
+        {"oryx.als.iterations": 1, "oryx.als.hyperparams.features": 2,
+         "oryx.ml.eval.test-fraction": 0.0}, config.get_default())
+    ratings = [KeyMessage(None, f"u{i % 3},i{i % 4},1,{i}") for i in range(12)]
+
+    def run_update(update):
+        with tempfile.TemporaryDirectory() as d:
+            update.run_update(None, 1, ratings if isinstance(update, ALSUpdate)
+                              else lines, [], d, None)
+
+    def build_model(update):
+        with tempfile.TemporaryDirectory() as d:
+            update.build_model(None, ratings, [2, 0.1, 1.0], d)
+
     return {
         "resolve": lambda **kw: resolve(**kw),
         "als_train": lambda **kw: train.als_train(batch, 3, 0.1, 1.0, True, 1,
@@ -109,6 +126,12 @@ def _entry_points():
         "KMeansUpdate.build_model": lambda **kw: KMeansUpdate(
             kmeans_conf, **kw).build_model(None, lines, [2], None),
         "state.kmeans_centers": lambda **kw: state.kmeans_centers(rows, **kw),
+        "KMeansUpdate.run_update": lambda **kw: run_update(
+            KMeansUpdate(kmeans_conf, **kw)),
+        "ALSUpdate.build_model": lambda **kw: build_model(ALSUpdate(als_conf, **kw)),
+        "ALSUpdate.run_update": lambda **kw: run_update(ALSUpdate(als_conf, **kw)),
+        "ALSServingModelManager": lambda **kw: ALSServingModelManager(
+            als_conf, **kw),
     }
 
 
