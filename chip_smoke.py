@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ALS loop and k-means path on one CUDA card and
-check every step.
+"""Drive the PyTorch port's ALS loop (batch, speed, serving) and k-means
+path on one CUDA card and check every step.
 
     python3 chip_smoke.py
 
@@ -111,10 +111,41 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            after ``run_update``. Host seconds
            by stage: split, each candidate's prepare / pack / iterations /
            part-file write / evaluation, promote, publish, consume, the
-           first top-N. It runs last: it is mostly host work.
+           first top-N. It runs after the kernel phases: it is mostly host
+           work;
+  als_speed
+           the ALS speed tier on that generation, last: a new
+           ``ALSSpeedModelManager`` consumes the generation's stream
+           (fraction loaded 1.0); the held-out 10% of the lines (100,000,
+           the newest) goes in as two microbatches of 50,000. For each, the
+           solver caches are brought current, ``build_updates`` folds it in
+           (host seconds by stage: prepare, solver get, vector gather,
+           fold-in, formatting; ``UP``s a second), and both the speed
+           manager and the generation's serving manager on the card hear
+           its ``UP``s. Checks: one X ``UP`` carrying its item and one Y
+           ``UP`` per changed pair; 256 sampled ``UP``s of each kind against
+           ``v + solve(VᵀV, w·Δq)`` in float64 from the pre-batch X and Y
+           (relative 1e-4); the serving snapshot taken incrementally (no
+           whole upload after the generation's first) and ``torch.equal``
+           to a whole upload; 256 users' top-10 (half of them touched, known
+           items from the ``UP``s included) equal to a model loaded fresh
+           from the stores, ids and scores bit for bit; ``get_vtv`` on the
+           card's matrix against a float64 Gramian (relative 1e-5),
+           ``build_temporary_user_vector`` for 256 contexts of 1-20 items
+           against a float64 fold-in (relative 1e-4), ``top_n_cosine`` for
+           16 item sets against an exact float64 scan (overlap >= 0.99).
+           Printed: each microbatch's consume seconds (both managers),
+           incremental and whole-upload snapshot milliseconds, YᵀY solver
+           seconds and input-to-servable seconds (lines to a serving
+           snapshot holding their updates). Then the 1,000,000 × 50f
+           serving model: three rounds of 10,000 changed and 1,000 new rows,
+           each snapshot timed incrementally beside a whole upload of the
+           same store (``torch.equal``), and 16 queries' top-10 equal to a
+           model loaded fresh. No kernel may launch in this phase.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
-(``paths``: the launches of each wrapper in the two generations' runs;
+(``paths``: the launches of each wrapper in the two generations' runs and
+in the speed phase, where all three must be 0;
 ``path_checks``: for each generation, one record per kernel and shape it
 launched at, that launch's output against the plain version on the same
 inputs), the ``nvidia-smi`` line, and last
@@ -151,6 +182,7 @@ from oryx_tpu_torch.models.als import evaluate
 from oryx_tpu_torch.models.als import pmml_codec as als_codec
 from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
+from oryx_tpu_torch.models.als.speed import ALSSpeedModelManager
 from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.kmeans import pmml_codec
 from oryx_tpu_torch.models.kmeans import train as kmtrain
@@ -201,6 +233,14 @@ KM_BLOB_POINTS, KM_LINES, KM_MICROBATCH = 200_000, 100_000, 10_000
 # two took 109 s of run_update on the H100, most of it the part-file
 # write and the evaluation's re-parse of each candidate
 GENERATION_TIMESTAMP_MS = 1_760_000_000_000
+
+# the speed tier: the generation's held-out 10% (100,000 lines, the
+# newest) as two microbatches of 50,000 (the size the reference's fold-in
+# notes are written for, oryx_tpu/models/als/speed.py:205-210); 256
+# sampled checks of each kind; at the flagship width, rounds of 10,000
+# changed and 1,000 new rows
+SPEED_MICROBATCH, SPEED_SAMPLES = 50_000, 256
+FLAGSHIP_CHANGED, FLAGSHIP_NEW = 10_000, 1_000
 
 
 class SmokeFailure(AssertionError):
@@ -745,13 +785,20 @@ def serve_trained(batch, x, y, rng):
     return {"queries": len(chosen), "seconds": serve_s, "overlap": ov}
 
 
-def serve_flagship(rng):
-    """top_n_batch at 1M items × 50 features, seeded factors."""
+def flagship_model(rng):
+    """A serving model on the card holding 1M items × 50 seeded features:
+    (model, Y, ids); Y is loaded, not yet uploaded."""
     y = rng.standard_normal((FLAGSHIP_ITEMS, FEATURES), dtype=np.float32)
     ids = [f"i{j}" for j in range(FLAGSHIP_ITEMS)]
     model = ALSServingModel(FEATURES, True)
-    t0 = time.perf_counter()
     model.bulk_load_items(ids, y)
+    return model, y, ids
+
+
+def serve_flagship(rng):
+    """top_n_batch at 1M items × 50 features, seeded factors."""
+    t0 = time.perf_counter()
+    model, y, ids = flagship_model(rng)
     model.y_snapshot()
     load_s = time.perf_counter() - t0
     out = {"items": FLAGSHIP_ITEMS, "features": FEATURES, "load_s": load_s}
@@ -960,13 +1007,15 @@ def check_update_stream(sent, meta, train_users, known) -> dict:
     return {"model": 1, "y_ups": n_y, "x_ups": len(x_ups)}
 
 
-def als_generation_phase(lines, rng) -> dict:
+def als_generation_phase(lines, rng):
     """One ALS batch generation through its entry points: ``ALSUpdate
     .run_update`` (its candidate trained on the card, evaluated, promoted
     and published to a recording producer), then a fresh
     ``ALSServingModelManager`` on the card consuming the whole stream, and
     its top-10 for 256 users held against a model loaded straight from the
-    promoted part files (see the module docstring)."""
+    promoted part files (see the module docstring). Returns the phase's
+    record, the published ``(key, message, headers)`` stream, the serving
+    manager and the configuration, for the speed phase."""
     conf = oryx_config.overlay_on({
         "oryx.ml.eval.test-fraction": TEST_FRACTION,
         "oryx.ml.eval.candidates": 1,
@@ -1084,6 +1133,327 @@ def als_generation_phase(lines, rng) -> dict:
         expected_launches=expected,
         shape_launches={launch_key(*key): n for key, n in counted.items()},
         held_against_plain=held, top_n_users=len(users))
+    return out, producer.sent, manager, conf
+
+
+# -- ALS speed tier ---------------------------------------------------------
+
+
+def settle_solvers(caches) -> float:
+    """Bring solver caches up to their vectors: wait out a background
+    recompute, then recompute in this thread if dirty; returns the seconds.
+    ``SolverCache`` hands out the previous solver while a recompute runs,
+    so a microbatch that follows the previous one's ``UP``s at once folds
+    in against whichever Gramian that race left; the float64 checks below
+    need the current one."""
+    t0 = time.perf_counter()
+    for cache in caches:
+        deadline = time.monotonic() + 60
+        while cache._in_flight and time.monotonic() < deadline:
+            time.sleep(0.001)
+        cache._maybe_launch(wait=True)
+    return time.perf_counter() - t0
+
+
+def pair_values(lines) -> dict:
+    """``(user, item) -> summed value`` over ``user,item,value,ts`` lines:
+    the implicit aggregation ``data.prepare`` applies (no decay, no log
+    strength)."""
+    out: dict = {}
+    for ln in lines:
+        u, i, v = ln.split(",")[:3]
+        out[(u, i)] = out.get((u, i), 0.0) + float(v)
+    return out
+
+
+def implicit_target(value: float, current: float) -> float:
+    """The implicit target estimate (ALSUtils.computeTargetQui), or NaN."""
+    if value > 0.0 and current < 1.0:
+        return current + value / (1.0 + value) * (1.0 - max(0.0, current))
+    if value < 0.0 and current > 0.0:
+        return current + value / (value - 1.0) * -min(1.0, current)
+    return float("nan")
+
+
+def check_speed_updates(ups, values, pre, rng, label) -> dict:
+    """The microbatch's ``UP``s against an independent reading of the same
+    pre-batch X and Y: one X ``UP``, carrying its item, per pair whose item
+    has a vector and whose target estimate is defined (float32 dot, as the
+    fold-in computes it), one Y ``UP`` per pair likewise; and for 256
+    sampled ``UP``s of each kind, ``v + solve(VᵀV, w·Δq)`` recomputed with
+    ``np.linalg.solve`` in float64, within relative 1e-4 (a float32
+    Gramian's rounding through the solve)."""
+    parsed = [json.loads(u) for u in ups]
+    got = {"X": {}, "Y": {}}
+    for u in parsed:
+        check(len(u) == 4 and len(u[3]) == 1 and len(u[2]) == FEATURES,
+              f"{label}: malformed UP {u[:2]}")
+        pair = (u[1], u[3][0]) if u[0] == "X" else (u[3][0], u[1])
+        check(pair in values, f"{label}: an UP for a pair not in the microbatch")
+        check(pair not in got[u[0]], f"{label}: two {u[0]} UPs for {pair}")
+        got[u[0]][pair] = np.asarray(u[2], dtype=np.float32)
+    (x_index, x0), (y_index, y0) = pre
+    gram = {"X": y0.astype(np.float64).T @ y0.astype(np.float64),
+            "Y": x0.astype(np.float64).T @ x0.astype(np.float64)}
+    want_pairs = {"X": set(), "Y": set()}
+    for (user, item), value in values.items():
+        xr, yr = x_index.get(user), y_index.get(item)
+        dot = float(np.dot(x0[xr], y0[yr])) if xr is not None and yr is not None else 0.0
+        if yr is not None and not np.isnan(
+                implicit_target(value, dot if xr is not None else 0.5)):
+            want_pairs["X"].add((user, item))
+        if xr is not None and not np.isnan(
+                implicit_target(value, dot if yr is not None else 0.5)):
+            want_pairs["Y"].add((user, item))
+    out = {}
+    for kind in ("X", "Y"):
+        check(set(got[kind]) == want_pairs[kind],
+              f"{label}: {len(got[kind])} {kind} UPs for "
+              f"{len(want_pairs[kind])} changed pairs")
+        pairs = sorted(got[kind])
+        worst = 0.0
+        for j in rng.choice(len(pairs), min(SPEED_SAMPLES, len(pairs)), replace=False):
+            user, item = pairs[j]
+            xr, yr = x_index.get(user), y_index.get(item)
+            xu = x0[xr].astype(np.float64) if xr is not None else None
+            yi = y0[yr].astype(np.float64) if yr is not None else None
+            own, other = (xu, yi) if kind == "X" else (yi, xu)
+            qui = float(own @ other) if own is not None else 0.0
+            target = implicit_target(values[(user, item)],
+                                     qui if own is not None else 0.5)
+            want = np.linalg.solve(gram[kind], other * (target - qui))
+            if own is not None:
+                want = want + own
+            rel = float(np.abs(got[kind][(user, item)] - want).max()
+                        / np.abs(want).max())
+            worst = max(worst, rel)
+        check(worst < 1e-4, f"{label}: {kind} UPs differ from the float64 "
+              f"fold-in by rel {worst}")
+        out[kind] = {"ups": len(pairs), "max_rel_err_f64": worst}
+    return out
+
+
+def check_served_top_n(model, touched, rng, label) -> dict:
+    """256 users, half of them touched by the microbatch: the manager's
+    top-10 (known items excluded, ``UP``-carried ones among them) equal to
+    a model built fresh from the stores' host matrices, ids and scores bit
+    for bit."""
+    all_users = model.all_user_ids()
+    half = SPEED_SAMPLES // 2
+    users = list(rng.choice(sorted(touched), half, replace=False))
+    rest = sorted(set(all_users) - set(users))
+    users += [rest[j] for j in rng.choice(len(rest), SPEED_SAMPLES - half, replace=False)]
+    known = {u: model.get_known_items(u) for u in users}
+    x_ids, x, _ = model.x.host_matrix()
+    y_ids, y, _ = model.y.host_matrix()
+    fresh = state.serving_model(x, y, x_ids, y_ids, known_items=known)
+    qs = np.stack([model.get_user_vector(u) for u in users])
+    excluded = [known[u] for u in users]
+    res = model.top_n_batch(qs, 10, excluded=excluded)
+    want = fresh.top_n_batch(qs, 10, excluded=excluded)
+    check([[i for i, _ in r] for r in res] == [[i for i, _ in r] for r in want]
+          and all(len(r) == 10 for r in res),
+          f"{label}: top-10 ids differ from a freshly loaded model's")
+    check(torch.equal(torch.tensor([[v for _, v in r] for r in res]),
+                      torch.tensor([[v for _, v in r] for r in want])),
+          f"{label}: top-10 scores differ from a freshly loaded model's")
+    for r, ex in zip(res, excluded):
+        check(not ({i for i, _ in r} & ex), f"{label}: a known item came back")
+    return {"users": len(users), "touched": half}
+
+
+def check_fold_in_api(model, rng, label) -> dict:
+    """The serving fold-in API on the card: ``get_vtv`` on the card's
+    matrix against a float64 host Gramian (relative 1e-5: a float32
+    product over the items); ``build_temporary_user_vector`` for 256
+    anonymous contexts of 1-20 items against a float64 fold-in (relative
+    1e-4); ``top_n_cosine`` for 16 item sets against an exact float64 scan
+    (overlap >= 0.99)."""
+    store = model.y
+    y_ids, y, version = store.host_matrix()
+    check(store._cached_version == version,
+          f"{label}: the device matrix is not current for get_vtv")
+    t0 = time.perf_counter()
+    vtv = store.get_vtv()
+    vtv_s = time.perf_counter() - t0
+    y64 = y.astype(np.float64)
+    gram = y64.T @ y64
+    vtv_rel = float(np.abs(vtv - gram).max() / np.abs(gram).max())
+    check(vtv_rel < 1e-5, f"{label}: get_vtv rel err {vtv_rel} >= 1e-5")
+    solver_s = settle_solvers([model.yty_cache])
+    index = {s: i for i, s in enumerate(y_ids)}
+    worst = 0.0
+    for _ in range(SPEED_SAMPLES):
+        items = [y_ids[j] for j in rng.choice(len(y_ids), rng.integers(1, 21),
+                                              replace=False)]
+        got = model.build_temporary_user_vector([(i, 1.0) for i in items])
+        vec = None
+        for item in items:
+            yi = y64[index[item]]
+            qui = float(vec @ yi) if vec is not None else 0.0
+            target = implicit_target(1.0, qui if vec is not None else 0.5)
+            if np.isnan(target):
+                continue
+            step = np.linalg.solve(gram, yi * (target - qui))
+            vec = step if vec is None else vec + step
+        worst = max(worst, float(np.abs(got - vec).max() / np.abs(vec).max()))
+    check(worst < 1e-4, f"{label}: temporary user vectors rel err {worst}")
+    norms = np.linalg.norm(y64, axis=1)
+    hits = 0
+    t0 = time.perf_counter()
+    for _ in range(16):
+        items = rng.choice(len(y_ids), rng.integers(1, 6), replace=False)
+        qs = y[items]
+        res = model.top_n_cosine(qs, 10)
+        q64 = qs.astype(np.float64)
+        sims = (y64 @ q64.T) / np.maximum(
+            norms[:, None] * np.linalg.norm(q64, axis=1)[None, :], 1e-12)
+        top = np.argpartition(-sims.mean(axis=1), 10)[:10]
+        hits += len({y_ids[j] for j in top} & {i for i, _ in res})
+    cosine_s = time.perf_counter() - t0
+    overlap = hits / 160
+    check(overlap >= 0.99, f"{label}: cosine overlap {overlap} < 0.99")
+    return {"vtv_rel_err": vtv_rel, "vtv_s": vtv_s, "yty_solver_s": solver_s,
+            "temporary_user_vector_max_rel_err_f64": worst,
+            "cosine_overlap": overlap, "cosine_16_sets_s": cosine_s}
+
+
+def whole_upload_ms(store, dev) -> tuple:
+    """The store uploaded whole (host gather, copy to the card), host
+    milliseconds around a synchronise; and the matrix."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, host, _ = store.host_matrix()
+    mat = torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, ids, mat
+
+
+def timed_snapshot_ms(model) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = model.y_snapshot()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, snap
+
+
+def flagship_snapshots(dev, rng) -> dict:
+    """The seeded 1,000,000 × 50f serving model: three rounds of 10,000
+    changed and 1,000 new rows through ``set_item_vector``, each followed
+    by a timed incremental ``y_snapshot``, beside a whole upload of the
+    same store (``torch.equal`` matrices); then top-10 for 16 queries equal
+    to a model loaded fresh from the store, ids and scores bit for bit."""
+    model, _, ids = flagship_model(rng)
+    first_ms, _ = timed_snapshot_ms(model)
+    rounds = []
+    for r in range(3):
+        changed = rng.choice(len(ids), FLAGSHIP_CHANGED, replace=False)
+        vecs = rng.standard_normal((FLAGSHIP_CHANGED + FLAGSHIP_NEW, FEATURES),
+                                   dtype=np.float32)
+        t0 = time.perf_counter()
+        for j, v in zip(changed.tolist(), vecs):
+            model.set_item_vector(ids[j], v)
+        for j, v in enumerate(vecs[FLAGSHIP_CHANGED:]):
+            model.set_item_vector(f"new{r}-{j}", v)
+        writes_s = time.perf_counter() - t0
+        inc_ms, snap = timed_snapshot_ms(model)
+        full_ms, full_ids, full = whole_upload_ms(model.y, dev)
+        check(torch.equal(snap.mat, full) and snap.n == len(full_ids)
+              and list(snap.ids[:snap.n]) == full_ids,
+              f"flagship round {r}: the incremental matrix is not the whole upload")
+        rounds.append({"incremental_ms": inc_ms, "full_upload_ms": full_ms,
+                       "writes_s": writes_s, "items": snap.n})
+    check(model.y.materializations == {"full": 1, "incremental": 3},
+          f"flagship: materialisations {model.y.materializations}")
+    fresh = ALSServingModel(FEATURES, True)
+    fresh.bulk_load_items(full_ids, model.y.host_matrix()[1])
+    qs = rng.standard_normal((16, FEATURES), dtype=np.float32)
+    res, want = model.top_n_batch(qs, 10), fresh.top_n_batch(qs, 10)
+    check(res == want and all(len(r) == 10 for r in res),
+          "flagship: top-10 differs from a freshly loaded model's")
+    return {"items": FLAGSHIP_ITEMS, "changed_rows": FLAGSHIP_CHANGED,
+            "new_rows": FLAGSHIP_NEW, "first_snapshot_ms": first_ms,
+            "rounds": rounds, "materializations": dict(model.y.materializations)}
+
+
+def als_speed_phase(lines, sent, manager, conf, rng) -> dict:
+    """The ALS speed tier on the generation's stream (see the module
+    docstring): a new ``ALSSpeedModelManager`` consumes it; the held-out
+    10% of the lines, the newest, goes in as two microbatches whose ``UP``s
+    both managers hear; each is checked against float64 and the serving
+    snapshot taken incrementally; then the flagship's snapshots."""
+    dev = resolve(None)
+    phase_t0 = time.perf_counter()
+    K.reset_launches()
+    speed = ALSSpeedModelManager(conf)
+    t0 = time.perf_counter()
+    speed.consume(KeyMessage(k, m) for k, m, _ in sent)
+    speed_load_s = time.perf_counter() - t0
+    fraction = speed.model.get_fraction_loaded()
+    check(fraction == 1.0, f"als_speed: speed fraction loaded {fraction}")
+    model = manager.get_model()
+    full_builds = model.y.materializations["full"]
+    n_train = int(round(len(lines) * (1.0 - TEST_FRACTION)))
+    held_out = lines[n_train:]
+    batches = [held_out[j:j + SPEED_MICROBATCH]
+               for j in range(0, len(held_out), SPEED_MICROBATCH)]
+    out: dict = {"speed_load_s": speed_load_s, "microbatches": []}
+    for b, batch in enumerate(batches):
+        label = f"als_speed microbatch {b}"
+        solver_settle_s = settle_solvers([speed.model.xtx_cache,
+                                          speed.model.yty_cache])
+        x_ids, x0, _ = speed.model.x.host_matrix()
+        y_ids, y0, _ = speed.model.y.host_matrix()
+        pre = (({s: i for i, s in enumerate(x_ids)}, x0),
+               ({s: i for i, s in enumerate(y_ids)}, y0))
+        incremental = model.y.materializations["incremental"]
+        t_in = time.perf_counter()
+        ups = speed.build_updates([KeyMessage(None, ln) for ln in batch])
+        build_s = time.perf_counter() - t_in
+        t0 = time.perf_counter()
+        manager.consume(KeyMessage("UP", u) for u in ups)
+        serving_consume_s = time.perf_counter() - t0
+        snapshot_ms, snap = timed_snapshot_ms(model)
+        input_to_servable_s = time.perf_counter() - t_in
+        t0 = time.perf_counter()
+        speed.consume(KeyMessage("UP", u) for u in ups)
+        speed_consume_s = time.perf_counter() - t0
+        counts = check_speed_updates(ups, pair_values(batch), pre, rng, label)
+        check(model.y.materializations == {"full": full_builds,
+                                           "incremental": incremental + 1},
+              f"{label}: materialisations {model.y.materializations}")
+        full_ms, full_ids, full = whole_upload_ms(model.y, dev)
+        check(torch.equal(snap.mat, full) and list(snap.ids[:snap.n]) == full_ids,
+              f"{label}: the incremental matrix is not the whole upload")
+        touched = {json.loads(u)[1] for u in ups if u.startswith('["X"')}
+        for u in ups[:1000]:
+            up = json.loads(u)
+            if up[0] == "X":
+                check(up[3][0] in model.get_known_items(up[1]),
+                      f"{label}: an UP's item is not among the known items")
+        record = {
+            "lines": len(batch), "interactions": speed.report["interactions"],
+            "ups": len(ups), "x_ups": counts["X"]["ups"],
+            "y_ups": counts["Y"]["ups"], "checks": counts,
+            "build_updates_s": build_s,
+            "stages_s": {k: speed.report[k] for k in (
+                "prepare_s", "solver_s", "gather_s", "foldin_s", "format_s")},
+            "ups_per_s": len(ups) / build_s,
+            "solver_settle_s": solver_settle_s,
+            "serving_consume_s": serving_consume_s,
+            "speed_consume_s": speed_consume_s,
+            "snapshot_incremental_ms": snapshot_ms,
+            "snapshot_full_upload_ms": full_ms, "items": snap.n,
+            "input_to_servable_s": input_to_servable_s,
+            "top_n": check_served_top_n(model, touched, rng, label),
+            "fold_in_api": check_fold_in_api(model, rng, label),
+        }
+        out["microbatches"].append(record)
+    out["flagship"] = flagship_snapshots(dev, rng)
+    out["launches"] = dict(K.LAUNCHES)
+    out["seconds"] = time.perf_counter() - phase_t0
+    check(not any(out["launches"].values()),
+          f"als_speed: kernels launched on the speed path: {out['launches']}")
     return out
 
 
@@ -1576,9 +1946,12 @@ def main() -> int:
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
-    # last: mostly host work, and nothing after it is profiled
-    generation = als_generation_phase(lines, rng)
+    # last: mostly host work, and nothing after them is profiled
+    generation, sent, manager, conf = als_generation_phase(lines, rng)
     emit("als_generation", **generation)
+    speed = als_speed_phase(lines, sent, manager, conf, rng)
+    emit("als_speed", **speed)
+    del sent, manager
 
     # each entry's launches at its shape, from the run of the path that
     # reaches it: the ALS run above, build_model (100k x 64), kmeans_train's
@@ -1610,6 +1983,7 @@ def main() -> int:
         "als_generation": {w: generation["launches"][w] for w in ALS_WRAPPERS},
         "kmeans_generation": {"kmeans_assign_accumulate":
                               km_update["generation"]["launches"]},
+        "als_speed": speed["launches"],
     }
     # each later path's launches held against the plain versions, one
     # record per shape the path launched at

@@ -2,9 +2,11 @@
 
 The port of the reference's ``ALSServingModel`` and
 ``ALSServingModelManager`` (``models/als/serving.py``) for float32 scoring on
-one device: Y lives on the device as one dense float32 matrix, rebuilt from
-the host store when the store changed, and a batch of queries is answered by
-ONE ``scores = Q @ Yᵀ`` product, known-item masking, and ``torch.topk``. The
+one device: Y lives on the device as one dense float32 matrix that the host
+store keeps current (``FeatureVectorStore.materialize``: a speed
+microbatch's point updates reach it as one scatter and one append, a model
+handoff as one whole upload), and a batch of queries is answered by ONE
+``scores = Q @ Yᵀ`` product, known-item masking, and ``torch.topk``. The
 reference leaves this scan to XLA outside any Pallas kernel (matmul +
 ``approx_max_k``), so it is plain torch here too; the float32 product runs
 without TF32. ``device_dtype="auto"`` resolves to float32, the reference's
@@ -14,14 +16,21 @@ The manager consumes the update topic as the reference's does: ``MODEL`` /
 ``MODEL-REF`` with new features builds a new model with its stores
 presized and the expected ids set; with the same features it retains what
 the new model names or what was written since the last handoff;
-``UP ["X"|"Y", id, vector(, known items)]`` sets one vector.
+``UP ["X"|"Y", id, vector(, known items)]`` sets one vector. After each
+message it starts the YᵀY factorisation in the background once the model is
+loaded enough (rate-limited), so the first fold-in request does not wait
+for it.
+
+The fold-in API the serving resources call is here too: the YᵀY solver
+(``SolverCache`` over ``y.get_vtv``, host float64 as in the reference),
+``build_temporary_user_vector``, ``dot_with_items``, the mean-cosine
+``top_n_cosine`` on the device, and the known-item counts.
 
 Not ported yet: LSH sampling (``sample_rate < 1``), bfloat16 and int8
 scoring copies, the IVF index, sharded serving, the staged double-buffer
-swap (``precompile-batches`` with ``prewarm-swap``), the YᵀY solver
-pre-trigger (it needs ``ops/solver.py``), the rescorer, and cost/metrics
-accounting. The manager raises at construction on a setting that would
-need one of them.
+swap (``precompile-batches`` with ``prewarm-swap``), the rescorer, and
+cost/metrics accounting. The manager raises at construction on a setting
+that would need one of them.
 """
 
 from __future__ import annotations
@@ -37,9 +46,11 @@ import torch
 
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.common.lockutils import RateLimitCheck
 from oryx_tpu_torch.ml.mlupdate import read_pmml_from_update_key_message
-from oryx_tpu_torch.models.als import pmml_codec
+from oryx_tpu_torch.models.als import foldin, pmml_codec
 from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
+from oryx_tpu_torch.ops.solver import SolverCache
 
 log = logging.getLogger(__name__)
 
@@ -86,17 +97,34 @@ def _masked_scores(mat, qs, excl):
 
 
 class _YSnapshot:
-    """Immutable device view of Y: ids, their row index, and the matrix."""
+    """Immutable device view of Y: the matrix, its row norms, and its ids.
 
-    def __init__(self, ids: list, mat: torch.Tensor, version: int):
+    ``ids`` is the store's id list of the matrix's order epoch, shared with
+    later snapshots of the same epoch: only its first ``n`` entries are this
+    snapshot's. ``prev`` + ``delta`` (``FeatureVectorStore.delta_since``)
+    build the snapshot after a speed microbatch without an O(n) host step:
+    the id → row map is ``prev``'s, extended for the appended rows. Every
+    lookup goes through :meth:`index_of`, bounded by this snapshot's ``n``,
+    so an older snapshot never names a row it does not hold."""
+
+    def __init__(self, ids, mat: "torch.Tensor | None",
+                 prev: "_YSnapshot | None" = None,
+                 delta: "tuple[np.ndarray, int] | None" = None):
         self.ids = ids
-        self.mat = mat  # (n, k) float32 on the serving device
-        self.version = version
-        self.id_to_idx = {s: i for i, s in enumerate(ids)}
+        self.mat = mat  # (n, k) float32 on the serving device, or None
+        self.n = 0 if mat is None else mat.shape[0]
+        if prev is not None and delta is not None:
+            self.id_to_idx = prev.id_to_idx
+            for i in range(prev.n, self.n):
+                self.id_to_idx[ids[i]] = i
+        else:
+            self.id_to_idx = {ids[i]: i for i in range(self.n)}
+        self.norms = (None if mat is None
+                      else torch.linalg.vector_norm(mat, dim=1))
 
-    @property
-    def n(self) -> int:
-        return len(self.ids)
+    def index_of(self, id_: str) -> "int | None":
+        i = self.id_to_idx.get(id_)
+        return i if i is not None and i < self.n else None
 
 
 def _check_supported(sample_rate: float, device_dtype: str) -> None:
@@ -123,6 +151,7 @@ class ALSServingModel(ServingModel):
         self._known_lock = threading.Lock()
         self.expected_user_ids: set[str] = set()
         self.expected_item_ids: set[str] = set()
+        self.yty_cache = SolverCache(self.y.get_vtv)
         self._snapshot: "_YSnapshot | None" = None
         self._snap_lock = threading.Lock()
 
@@ -134,6 +163,7 @@ class ALSServingModel(ServingModel):
     def set_item_vector(self, item: str, vec) -> None:
         self.y.set_vector(item, vec)
         self.expected_item_ids.discard(item)
+        self.yty_cache.set_dirty()
 
     def bulk_load_users(self, ids, matrix) -> None:
         """Whole-matrix X handoff."""
@@ -144,6 +174,7 @@ class ALSServingModel(ServingModel):
         """Whole-matrix Y handoff."""
         self.y.bulk_load(ids, matrix)
         self.expected_item_ids.difference_update(ids)
+        self.yty_cache.set_dirty()
 
     def get_user_vector(self, user: str):
         return self.x.get_vector(user)
@@ -159,6 +190,29 @@ class ALSServingModel(ServingModel):
         with self._known_lock:
             return set(self.known_items.get(user, ()))
 
+    def get_known_item_vectors_for_user(self, user: str) -> list[tuple[str, np.ndarray]]:
+        """(ALSServingModel.getKnownItemVectorsForUser)"""
+        out = []
+        for item in self.get_known_items(user):
+            v = self.y.get_vector(item)
+            if v is not None:
+                out.append((item, v))
+        return out
+
+    def item_counts(self) -> dict[str, int]:
+        """How many users know each item (ALSServingModel.getItemCounts)."""
+        counts: dict[str, int] = {}
+        with self._known_lock:
+            for items in self.known_items.values():
+                for i in items:
+                    counts[i] = counts.get(i, 0) + 1
+        return counts
+
+    def user_counts(self) -> dict[str, int]:
+        """Known-item count per user (MostActiveUsers source)."""
+        with self._known_lock:
+            return {u: len(items) for u, items in self.known_items.items()}
+
     def all_user_ids(self) -> list:
         return self.x.ids()
 
@@ -170,6 +224,7 @@ class ALSServingModel(ServingModel):
 
     def retain_recent_and_item_ids(self, ids) -> None:
         self.y.retain_recent_and_ids(set(ids))
+        self.yty_cache.set_dirty()
 
     def retain_recent_and_known_items(self, users) -> None:
         keep = set(users)
@@ -187,14 +242,21 @@ class ALSServingModel(ServingModel):
 
     # -- device snapshot ----------------------------------------------------
     def y_snapshot(self) -> _YSnapshot:
-        """The current device view of Y, uploaded anew when the store has
-        changed since the last one."""
+        """The current device view of Y. After point updates alone it is
+        built from the previous one (see ``FeatureVectorStore.materialize``
+        and :class:`_YSnapshot`), across any number of store generations
+        (``get_vtv`` may have taken some in between). One thread at a time:
+        a snapshot is never replaced by an older one."""
         with self._snap_lock:
-            version = self.y.version()
-            if self._snapshot is None or self._snapshot.version != version:
-                ids, host, version = self.y.host_matrix()
-                mat = torch.as_tensor(host, device=self.device)
-                self._snapshot = _YSnapshot(ids, mat, version)
+            ids, mat = self.y.materialize(self.device)
+            snap = self._snapshot
+            if snap is None or snap.mat is not mat:
+                delta = None
+                if snap is not None and snap.mat is not None and mat is not None:
+                    delta = self.y.delta_since(snap.mat, mat)
+                self._snapshot = _YSnapshot(
+                    ids, mat, prev=snap if delta is not None else None,
+                    delta=delta)
             return self._snapshot
 
     # -- query primitives ----------------------------------------------------
@@ -206,11 +268,7 @@ class ALSServingModel(ServingModel):
         max_e = 1
         for b in range(batch):
             ids = excluded[b] if excluded is not None else None
-            ix = (
-                [snap.id_to_idx[i] for i in ids if i in snap.id_to_idx]
-                if ids
-                else []
-            )
+            ix = [j for i in ids if (j := snap.index_of(i)) is not None] if ids else []
             idx_lists.append(ix)
             max_e = max(max_e, len(ix))
         width = max(_EXCL_PAD_MIN, _round_up_pow2(max_e))
@@ -303,6 +361,65 @@ class ALSServingModel(ServingModel):
             out.append(got)
         return out
 
+    def top_n_cosine(
+        self,
+        query_vecs,
+        how_many: int,
+        offset: int = 0,
+        allowed: "Callable[[str], bool] | None" = None,
+        rescore: "Callable[[str, float], float] | None" = None,
+    ) -> list[tuple[str, float]]:
+        """Mean-cosine top-N for /similarity (CosineAverageFunction.java:67):
+        each item's mean cosine to the query vectors, on the device."""
+        snap = self.y_snapshot()
+        if snap.n == 0:
+            return []
+        qs = torch.as_tensor(
+            np.atleast_2d(np.asarray(query_vecs, dtype=np.float32)),
+            device=self.device)
+        q_norms = torch.linalg.vector_norm(qs, dim=1)
+        sims = (snap.mat @ qs.T) / torch.clamp(
+            snap.norms[:, None] * q_norms[None, :], min=1e-12)
+        scores = sims.mean(dim=1)
+        want = how_many + offset
+        k = min(snap.n, _round_up_pow2(max(4 * want, 64)))
+        while True:
+            vals, idx = torch.topk(scores, k)
+            out = self._collect(snap, vals.cpu().numpy(), idx.cpu().numpy(),
+                                want, allowed, rescore)
+            if len(out) >= want or k >= snap.n:
+                return out[offset:offset + how_many]
+            k = min(snap.n, k * 2)
+
+    def dot_with_items(self, query_vec, item_ids: Sequence[str]) -> list[float]:
+        q = np.asarray(query_vec, dtype=np.float32)
+        return [
+            float(np.dot(q, v)) if (v := self.y.get_vector(i)) is not None else 0.0
+            for i in item_ids
+        ]
+
+    def get_yty_solver(self):
+        return self.yty_cache.get(blocking=True)
+
+    def precompute_solvers(self) -> None:
+        self.yty_cache.compute_now()
+
+    def build_temporary_user_vector(
+        self, item_values: Sequence[tuple[str, float]], xu=None
+    ) -> "np.ndarray | None":
+        """Fold a context of (item, value) pairs into a temporary user vector
+        (EstimateForAnonymous.buildTemporaryUserVector)."""
+        solver = self.get_yty_solver()
+        if solver is None:
+            return None
+        vec = None if xu is None else np.asarray(xu, dtype=np.float32)
+        for item, value in item_values:
+            yi = self.y.get_vector(item)
+            new_vec = foldin.compute_updated_xu(solver, value, vec, yi, self.implicit)
+            if new_vec is not None:
+                vec = new_vec
+        return vec
+
     @staticmethod
     def _collect(snap, vals, idx, want, allowed, rescore) -> list[tuple[str, float]]:
         out: list[tuple[str, float]] = []
@@ -330,6 +447,8 @@ class ALSServingModelManager(AbstractServingModelManager):
     def __init__(self, config, device=None):
         super().__init__(config)
         self.sample_rate = config.get_float("oryx.als.sample-rate")
+        self.min_model_load_fraction = config.get_float(
+            "oryx.serving.min-model-load-fraction")
         self.device_dtype = config.get_string("oryx.serving.device-dtype", "auto")
         _check_supported(self.sample_rate, self.device_dtype)
         for key, what in (
@@ -344,6 +463,8 @@ class ALSServingModelManager(AbstractServingModelManager):
                 "oryx.compile.prewarm-swap: the staged model swap is not "
                 "ported yet")
         self.device = resolve(device)
+        # the YᵀY pre-trigger's rate limit (ALSServingModelManager.java:95-105)
+        self._solver_trigger_rate = RateLimitCheck(5)
         self.model: "ALSServingModel | None" = None
 
     def get_model(self) -> "ALSServingModel | None":
@@ -364,6 +485,7 @@ class ALSServingModelManager(AbstractServingModelManager):
                 model.set_item_vector(id_, vec)
             else:
                 raise ValueError(f"bad update type: {kind}")
+            self._maybe_trigger_solvers()
         elif key in ("MODEL", "MODEL-REF"):
             pmml = read_pmml_from_update_key_message(key, message)
             meta = pmml_codec.pmml_to_meta(pmml)
@@ -389,5 +511,18 @@ class ALSServingModelManager(AbstractServingModelManager):
                 m.retain_recent_and_known_items(meta["x_ids"])
                 m.expected_user_ids = set(meta["x_ids"]) - set(m.x.ids())
                 m.expected_item_ids = set(meta["y_ids"]) - set(m.y.ids())
+            self._maybe_trigger_solvers()  # MODEL alone may cross the threshold
         else:
             raise ValueError(f"bad key: {key}")
+
+    def _maybe_trigger_solvers(self) -> None:
+        """Start the YᵀY factorisation in the background once the model
+        passes the load fraction, so the first fold-in request does not
+        wait for it (ALSServingModelManager.java:95-105). Rate-limited: the
+        fraction test walks the expected-id sets, too costly per ``UP``;
+        the launch is a no-op while the cache is clean."""
+        model = self.model
+        if model is None or not self._solver_trigger_rate.test():
+            return
+        if model.get_fraction_loaded() >= self.min_model_load_fraction:
+            model.precompute_solvers()

@@ -536,3 +536,91 @@ def test_als_generation_on_the_card_matches_the_cpu(cuda_device, monkeypatch,
         got = np.array([u[2] for u in ups if u[0] == kind])
         ref = np.array([u[2] for u in cpu_ups if u[0] == kind])
         assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_incremental_snapshot_on_the_card_equals_a_whole_upload(cuda_device):
+    """The store's device matrix after rounds of mixed point updates and
+    appends: each round's matrix, taken incrementally, ``torch.equal`` to
+    the store uploaded whole; a matrix once handed out is unchanged by
+    later rounds."""
+    from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
+
+    rng = np.random.default_rng(SEED + 5)
+    store = FeatureVectorStore()
+    n, k = 3000, 50
+    store.bulk_load([f"i{j}" for j in range(n)],
+                    rng.standard_normal((n, k)).astype(np.float32))
+    _, first = store.materialize()
+    held = first.clone()
+    for r in range(4):
+        for j in rng.choice(n, 200, replace=False).tolist():
+            store.set_vector(f"i{j}", rng.standard_normal(k).astype(np.float32))
+        for j in range(r * 30):
+            store.set_vector(f"new{r}-{j}", rng.standard_normal(k).astype(np.float32))
+        ids, mat = store.materialize()
+        host_ids, host, _ = store.host_matrix()
+        assert mat.device.type == "cuda" and list(ids[:mat.shape[0]]) == host_ids
+        assert torch.equal(mat, torch.from_numpy(host).to(cuda_device))
+    assert store.materializations == {"full": 1, "incremental": 4}
+    assert torch.equal(first, held)
+    vtv = store.get_vtv()  # on the card's matrix
+    assert np.abs(vtv - host.T.astype(np.float64) @ host).max() < 1e-5 * np.abs(vtv).max()
+
+
+@pytest.mark.cuda
+def test_speed_updates_served_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """A generation's stream and a speed microbatch's UPs served by one
+    manager on the card and one on the CPU: the same Y bytes on both
+    devices (the card's taken incrementally) and the same top-10 ids, scores
+    within 1e-5 (float32 products in another order)."""
+    from oryx_tpu_torch.api.keymessage import KeyMessage
+    from oryx_tpu_torch.common import config
+    from oryx_tpu_torch.models.als import pmml_codec
+    from oryx_tpu_torch.models.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.models.als.speed import ALSSpeedModelManager
+    from oryx_tpu_torch.pmml import pmmlutils
+
+    rng = np.random.default_rng(SEED + 6)
+    k, n_users, n_items = 50, 400, 300
+    x = (rng.standard_normal((n_users, k)) * 0.2).astype(np.float32)
+    y = (rng.standard_normal((n_items, k)) * 0.2).astype(np.float32)
+    users = [f"u{j}" for j in range(n_users)]
+    items = [f"i{j}" for j in range(n_items)]
+    pmml = pmml_codec.model_to_pmml(x, y, users, items, k, 0.1, 1.0, True, False,
+                                    1e-5, tmp_path / "m")
+    stream = [KeyMessage("MODEL", pmmlutils.to_string(pmml))]
+    stream += [KeyMessage("UP", json.dumps(["Y", i, v.tolist()]))
+               for i, v in zip(items, y)]
+    stream += [KeyMessage("UP", json.dumps(["X", u, v.tolist(), [items[j % n_items]]]))
+               for j, (u, v) in enumerate(zip(users, x))]
+    conf = config.overlay_on({"oryx.als.hyperparams.features": k},
+                             config.get_default())
+    speed = ALSSpeedModelManager(conf)
+    card = ALSServingModelManager(conf)
+    cpu = ALSServingModelManager(conf, device="cpu")
+    for mgr in (speed, card, cpu):
+        mgr.consume(stream)
+    card.get_model().y_snapshot()  # the whole upload, before the UPs
+    lines = [f"u{rng.integers(0, n_users + 20)},i{rng.integers(0, n_items + 10)},1,{t}"
+             for t in range(2000)]
+    ups = list(speed.build_updates([KeyMessage(None, ln) for ln in lines]))
+    assert len(ups) > 1000
+    for mgr in (speed, card, cpu):
+        mgr.consume(KeyMessage("UP", u) for u in ups)
+    model, cpu_model = card.get_model(), cpu.get_model()
+    snap, cpu_snap = model.y_snapshot(), cpu_model.y_snapshot()
+    assert model.y.materializations == {"full": 1, "incremental": 1}
+    assert torch.equal(snap.mat.cpu(), cpu_snap.mat)
+    assert list(snap.ids[:snap.n]) == list(cpu_snap.ids[:cpu_snap.n])
+    qs = np.stack([model.get_user_vector(u) for u in users[:64]])
+    excluded = [model.get_known_items(u) for u in users[:64]]
+    got = model.top_n_batch(qs, 10, excluded=excluded)
+    want = cpu_model.top_n_batch(qs, 10, excluded=excluded)
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0,
+                                   atol=1e-5)
+    got = model.top_n_cosine(qs[:3], 10)
+    want = cpu_model.top_n_cosine(qs[:3], 10)
+    assert [i for i, _ in got] == [i for i, _ in want]

@@ -26,6 +26,7 @@ from oryx_tpu_torch.models.als import train
 from oryx_tpu_torch.models.als.data import RatingBatch
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
 from oryx_tpu_torch.models.als.update import ALSUpdate
+from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
 from oryx_tpu_torch.ops import vectormath
@@ -65,6 +66,9 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_reference_package():
     sources = list(_port_sources())
     assert len(sources) > 10 and os.path.exists(sources[-1])
+    scanned = {os.path.relpath(p, PKG) for p in sources}
+    assert {"common/lockutils.py", "ops/solver.py", "models/als/foldin.py",
+            "models/als/speed.py", "models/als/vectors.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -97,6 +101,8 @@ def _entry_points():
         {"oryx.als.iterations": 1, "oryx.als.hyperparams.features": 2,
          "oryx.ml.eval.test-fraction": 0.0}, config.get_default())
     ratings = [KeyMessage(None, f"u{i % 3},i{i % 4},1,{i}") for i in range(12)]
+    store = FeatureVectorStore()
+    store.set_vector("a", rows[0])
 
     def run_update(update):
         with tempfile.TemporaryDirectory() as d:
@@ -132,6 +138,8 @@ def _entry_points():
         "ALSUpdate.run_update": lambda **kw: run_update(ALSUpdate(als_conf, **kw)),
         "ALSServingModelManager": lambda **kw: ALSServingModelManager(
             als_conf, **kw),
+        # ALSServingModel.y_snapshot's device copy
+        "FeatureVectorStore.materialize": lambda **kw: store.materialize(**kw),
     }
 
 
