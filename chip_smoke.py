@@ -52,6 +52,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
   serve_flagship
            1,000,000 items × 50 features (seeded), ``top_n_batch`` timed
            at batch 1, 16 and 256, top-10, checked against an exact scan;
+           and ``y_snapshot()`` with nothing changed, 1,000 calls timed on
+           the host (median and p90 microseconds);
   kmeans_kernel
            the Lloyd-sweep kernel against its plain version on 1,000,000 ×
            64 standard-normal points with K = 256 (near ties allowed), on
@@ -90,65 +92,83 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``kmeans_train`` at 1,000,000 × 64, k = 256, 8 iterations, one
            run, twice (the second timed): point-iters/s, seeding and sweep
            seconds apart;
-  als_generation
-           one ALS batch generation on the same 1,000,000 lines:
-           ``ALSUpdate.run_update`` (time-ordered 10% hold-out, one
-           candidate, λ = 1, trained on the card at k = 50, 3 iterations,
-           α = 1, written as part files, evaluated by AUC; cut from two λ
-           candidates for time), promoted and published to a recording
-           producer; the candidate must have built and been evaluated on
-           the card, its AUC > 0.75, both ALS kernels launched
-           iterations × (user + item blocks) times
-           (counters set to 0 just before ``run_update``), one ``MODEL``
-           first, a ``Y`` ``UP`` per item before any ``X`` ``UP``, and one
-           ``X`` ``UP`` with its known items per user of the training split;
-           then a fresh ``ALSServingModelManager`` on the card consumes the
-           stream (fraction loaded 1.0) and its top-10 for 256 users,
-           known items excluded, must equal (ids, and scores bit for bit) a
-           model loaded straight from the promoted part files. Each ALS
-           kernel's first launch at each shape the generation reached is
-           kept (inputs and outputs) and held against its plain version
-           after ``run_update``. Host seconds
-           by stage: split, each candidate's prepare / pack / iterations /
-           part-file write / evaluation, promote, publish, consume, the
-           first top-N. It runs after the kernel phases: it is mostly host
-           work;
-  als_speed
-           the ALS speed tier on that generation, last: a new
-           ``ALSSpeedModelManager`` consumes the generation's stream
-           (fraction loaded 1.0); the held-out 10% of the lines (100,000,
-           the newest) goes in as two microbatches of 50,000. For each, the
-           solver caches are brought current, ``build_updates`` folds it in
-           (host seconds by stage: prepare, solver get, vector gather,
-           fold-in, formatting; ``UP``s a second), and both the speed
-           manager and the generation's serving manager on the card hear
-           its ``UP``s. Checks: one X ``UP`` carrying its item and one Y
-           ``UP`` per changed pair; 256 sampled ``UP``s of each kind against
+  lambda_loop
+           the ALS lambda loop through the port's runtime, last (mostly
+           host work), on ``memory:`` topics: a ``BatchLayer`` and a
+           ``SpeedLayer`` with ``platform`` null (the card), and an
+           ``ALSServingModelManager`` on the card consuming the update
+           topic from ``earliest`` on a thread of its own (what the serving
+           app does). Batch half: the same 1,000,000 lines are sent one by
+           one through the input topic's producer (``produce_s``), offset 0
+           is stored for the batch layer's group (a layer without a stored
+           offset starts at its input's end), both layers start, and the
+           batch layer runs one generation: ``ALSUpdate.run_update``
+           (time-ordered 10% hold-out, one candidate, λ = 1, trained on the
+           card at k = 50, 3 iterations, α = 1, written as part files,
+           evaluated by AUC; cut from two λ candidates for time), promoted
+           and published to the update topic, then the segment write and
+           the offset commit; the batch layer is closed after it. Checks,
+           on the stream read back from the update topic: the candidate
+           built and evaluated on the card, AUC > 0.75, both ALS kernels
+           launched iterations × (user + item blocks) times (counters set
+           to 0 just before the layers start) and no sweep, each kernel's
+           first launch at each shape held against its plain version after
+           the generation, one ``MODEL`` first (inline, under the
+           transport's cap), a ``Y`` ``UP`` per item before any ``X``
+           ``UP``, one ``X`` ``UP`` with its known items per user of the
+           training split; one data segment of 1,000,000 lines, the
+           group's stored offset at the input topic's end, the ``MODEL``'s
+           lineage stamp carrying the context's offsets and watermark; the
+           serving manager holding the whole stream (fraction 1.0), its
+           top-10 for 256 users, known items excluded, equal (ids, and
+           scores bit for bit) to a model loaded straight from the promoted
+           part files. Printed: the generation's wall split into poll,
+           ``run_update`` (with ``MLUpdate``'s stages), segment write and
+           offsets (the generation's step seconds and items, and the speed
+           layer's published ``UP``s, are the runtime's own, read from the
+           metrics registry), and publish-to-servable seconds (the first ``MODEL`` on
+           the update topic to the serving manager holding the stream).
+           Speed half: the held-out 10% (100,000 lines, the newest) as two
+           50,000-line microbatches through the input topic. Before each,
+           both managers apply every message on the update topic (the speed
+           layer hears its own ``UP``s), the speed manager's solver caches
+           are brought current (``settle_solvers``: ``SolverCache`` hands
+           out the previous solver while a recompute runs), the pre-batch
+           X and Y are read, and the lines are sent just after an idle tick
+           of the speed layer's pump (2 s interval), so one generation
+           reads exactly them (checked, with the offsets it ends at). The
+           ``UP``s are read from the update topic, each with the watermark
+           header of the input offsets and watermark it incorporated.
+           Checks: one X ``UP`` carrying its item and one Y ``UP`` per
+           changed pair; 256 sampled ``UP``s of each kind against
            ``v + solve(VᵀV, w·Δq)`` in float64 from the pre-batch X and Y
            (relative 1e-4); the serving snapshot taken incrementally (no
            whole upload after the generation's first) and ``torch.equal``
-           to a whole upload; 256 users' top-10 (half of them touched, known
-           items from the ``UP``s included) equal to a model loaded fresh
-           from the stores, ids and scores bit for bit; ``get_vtv`` on the
-           card's matrix against a float64 Gramian (relative 1e-5),
+           to a whole upload; 256 users' top-10 (half of them touched,
+           known items from the ``UP``s included) equal to a model loaded
+           fresh from the stores, ids and scores bit for bit; ``get_vtv``
+           on the card's matrix against a float64 Gramian (relative 1e-5),
            ``build_temporary_user_vector`` for 256 contexts of 1-20 items
            against a float64 fold-in (relative 1e-4), ``top_n_cosine`` for
            16 item sets against an exact float64 scan (overlap >= 0.99).
-           Printed: each microbatch's consume seconds (both managers),
-           incremental and whole-upload snapshot milliseconds, YᵀY solver
-           seconds and input-to-servable seconds (lines to a serving
-           snapshot holding their updates). Then the 1,000,000 × 50f
-           serving model: three rounds of 10,000 changed and 1,000 new rows,
-           each snapshot timed incrementally beside a whole upload of the
-           same store (``torch.equal``), and 16 queries' top-10 equal to a
-           model loaded fresh. No kernel may launch in this phase.
+           Printed per microbatch: append-to-servable seconds (the last
+           line sent to a serving snapshot holding the ``UP``s), with and
+           without the wait for the tick; the pump's poll, ``build_updates``
+           (by stage) and ``UP`` publish seconds and both consumers' lag
+           behind the publish; snapshot milliseconds. No kernel may launch
+           in the speed half. Then the 1,000,000 × 50f serving model: three
+           rounds of 10,000 changed and 1,000 new rows, each snapshot timed
+           incrementally beside a whole upload of the same store
+           (``torch.equal``), and 16 queries' top-10 equal to a model loaded
+           fresh. Any quarantined generation, corrupt record, failed send or
+           layer failure fails the phase.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
-(``paths``: the launches of each wrapper in the two generations' runs and
-in the speed phase, where all three must be 0;
-``path_checks``: for each generation, one record per kernel and shape it
-launched at, that launch's output against the plain version on the same
-inputs), the ``nvidia-smi`` line, and last
+(``paths``: the launches of each wrapper in the loop's batch half
+``lambda_loop.batch``, in the k-means generation, and in the loop's speed
+half ``lambda_loop.speed``, where all three must be 0; ``path_checks``:
+for each generation, one record per kernel and shape it launched at, that
+launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Each kernels-line entry's ``launches``
 is its kernel's count at its shape in the run of the path that reaches it
 (``K.SHAPE_LAUNCHES``): the ALS train and serve run, ``build_model``'s run
@@ -176,14 +196,16 @@ import torch
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
 from oryx_tpu_torch.common import config as oryx_config
+from oryx_tpu_torch.common import lineage
+from oryx_tpu_torch.common import metrics
 from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
 from oryx_tpu_torch.models.als import data as als_data
 from oryx_tpu_torch.models.als import evaluate
 from oryx_tpu_torch.models.als import pmml_codec as als_codec
 from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
-from oryx_tpu_torch.models.als.speed import ALSSpeedModelManager
-from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.kmeans import pmml_codec
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.serving import KMeansServingModelManager
@@ -192,6 +214,7 @@ from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
 from oryx_tpu_torch.ops import _build
 from oryx_tpu_torch.ops import kernels as K
 from oryx_tpu_torch.pmml import pmmlutils
+from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch import state
 
 SEED = 20261016
@@ -228,11 +251,18 @@ INNER = 20
 KM_N, KM_D, KM_K, KM_ITERATIONS = 1_000_000, 64, 256, 8
 KM_BLOB_POINTS, KM_LINES, KM_MICROBATCH = 200_000, 100_000, 10_000
 
-# one ALS batch generation at the train phase's shape: one candidate (λ =
-# LAM), cut from a grid of two (λ 0.5 and 1) to keep the phase near 90 s;
-# two took 109 s of run_update on the H100, most of it the part-file
-# write and the evaluation's re-parse of each candidate
+# the k-means generation's timestamp (a recording producer, no layer)
 GENERATION_TIMESTAMP_MS = 1_760_000_000_000
+
+# the ALS lambda loop: one batch generation at the train phase's shape with
+# one candidate (λ = LAM), cut from a grid of two (λ 0.5 and 1) to keep it
+# near 90 s (two took 109 s of run_update on the H100, most of it the
+# part-file write and the evaluation's re-parse of each candidate); its
+# layers tick every BATCH_INTERVAL_S / SPEED_INTERVAL_S seconds: the speed
+# interval is long enough that a 50,000-line append (~0.5 s) sent just
+# after a tick lands in one generation
+LOOP_BROKER = "memory:smoke"
+BATCH_INTERVAL_S, SPEED_INTERVAL_S = 1.0, 2.0
 
 # the speed tier: the generation's held-out 10% (100,000 lines, the
 # newest) as two microbatches of 50,000 (the size the reference's fold-in
@@ -796,12 +826,24 @@ def flagship_model(rng):
 
 
 def serve_flagship(rng):
-    """top_n_batch at 1M items × 50 features, seeded factors."""
+    """top_n_batch at 1M items × 50 features, seeded factors; and the host
+    microseconds of ``y_snapshot()`` with nothing changed (1,000 calls), the
+    per-query cost of taking the served matrix."""
     t0 = time.perf_counter()
     model, y, ids = flagship_model(rng)
     model.y_snapshot()
+    torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    out = {"items": FLAGSHIP_ITEMS, "features": FEATURES, "load_s": load_s}
+    snapshot_s = []
+    for _ in range(1000):
+        t0 = time.perf_counter()
+        model.y_snapshot()
+        snapshot_s.append(time.perf_counter() - t0)
+    us = np.asarray(snapshot_s) * 1e6
+    out = {"items": FLAGSHIP_ITEMS, "features": FEATURES, "load_s": load_s,
+           "y_snapshot_unchanged_us": {"median": float(np.median(us)),
+                                       "p90": float(np.percentile(us, 90)),
+                                       "calls": len(us)}}
     for batch_size, reps in ((1, 50), (16, 30), (256, 15)):
         qs = rng.standard_normal((batch_size, FEATURES), dtype=np.float32)
         res = model.top_n_batch(qs, 10)  # warm-up, and the result checked
@@ -987,153 +1029,24 @@ def check_update_stream(sent, meta, train_users, known) -> dict:
     keys = [k for k, _, _ in sent]
     check(keys[0] in ("MODEL", "MODEL-REF")
           and not ({"MODEL", "MODEL-REF"} & set(keys[1:])),
-          f"als_generation: not one model message first: {keys[:3]}")
-    check(set(keys[1:]) == {"UP"}, "als_generation: a non-UP after the model")
+          f"lambda_loop: not one model message first: {keys[:3]}")
+    check(set(keys[1:]) == {"UP"}, "lambda_loop: a non-UP after the model")
     ups = [json.loads(m) for _, m, _ in sent[1:]]
     kinds = [u[0] for u in ups]
     n_y = kinds.count("Y")
     check(kinds == ["Y"] * n_y + ["X"] * (len(kinds) - n_y),
-          "als_generation: an X UP came before the last Y UP")
+          "lambda_loop: an X UP came before the last Y UP")
     check([u[1] for u in ups[:n_y]] == meta["y_ids"],
-          "als_generation: Y UPs are not the model's items in order")
+          "lambda_loop: Y UPs are not the model's items in order")
     x_ups = ups[n_y:]
     check([u[1] for u in x_ups] == meta["x_ids"]
           and set(meta["x_ids"]) == train_users,
-          "als_generation: X UPs are not one per user of the training split")
+          "lambda_loop: X UPs are not one per user of the training split")
     check(all(u[3] == known[u[1]] for u in x_ups),
-          "als_generation: an X UP's known items differ from the user's items")
+          "lambda_loop: an X UP's known items differ from the user's items")
     check(all(len(u[2]) == meta["features"] for u in ups),
-          "als_generation: a vector of the wrong width")
+          "lambda_loop: a vector of the wrong width")
     return {"model": 1, "y_ups": n_y, "x_ups": len(x_ups)}
-
-
-def als_generation_phase(lines, rng):
-    """One ALS batch generation through its entry points: ``ALSUpdate
-    .run_update`` (its candidate trained on the card, evaluated, promoted
-    and published to a recording producer), then a fresh
-    ``ALSServingModelManager`` on the card consuming the whole stream, and
-    its top-10 for 256 users held against a model loaded straight from the
-    promoted part files (see the module docstring). Returns the phase's
-    record, the published ``(key, message, headers)`` stream, the serving
-    manager and the configuration, for the speed phase."""
-    conf = oryx_config.overlay_on({
-        "oryx.ml.eval.test-fraction": TEST_FRACTION,
-        "oryx.ml.eval.candidates": 1,
-        "oryx.als.hyperparams.lambda": LAM,
-        "oryx.als.hyperparams.features": FEATURES,
-        "oryx.als.hyperparams.alpha": ALPHA,
-        "oryx.als.iterations": ITERATIONS,
-    }, oryx_config.get_default())
-    update = ALSUpdate(conf)
-    msgs = [KeyMessage(None, ln) for ln in lines]
-    producer = RecordingProducer()
-    out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="oryx-generation-") as model_dir:
-        K.reset_launches()
-        with FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
-                            (tr, "spd_solve_batched", spd_key)]) as first:
-            t0 = time.perf_counter()
-            update.run_update(None, GENERATION_TIMESTAMP_MS, msgs, [],
-                              model_dir, producer)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
-        counted = dict(K.SHAPE_LAUNCHES)
-        report = update.report
-        cands = report["candidates"]
-        check(len(cands) == 1 and all(
-            "failed" not in c and "eval" in c for c in cands.values()),
-              f"als_generation: not every candidate built and evaluated: "
-              f"{ {n: c.get('failed') for n, c in cands.items()} }")
-        check(all(c["device"].startswith("cuda") for c in cands.values()),
-              "als_generation: a candidate was not built on the card")
-        aucs = {n: c["eval"] for n, c in cands.items()}
-        best = report["best"]
-        check(aucs[best] == max(aucs.values()) and aucs[best] > 0.75,
-              f"als_generation: promoted {best} of AUCs {aucs}")
-        expected = sum(ITERATIONS * (c["blocks"]["user"] + c["blocks"]["item"])
-                       for c in cands.values())
-        for wrapper in ALS_WRAPPERS:
-            check(launches[wrapper] == expected,
-                  f"als_generation: {launches[wrapper]} {wrapper} launches, "
-                  f"expected {expected} (iterations x blocks, both candidates)")
-        held = hold_path_launches(first, counted, "als_generation")
-        promoted = Path(model_dir) / str(GENERATION_TIMESTAMP_MS)
-        meta = als_codec.pmml_to_meta(pmmlutils.read(promoted / "model.pmml"))
-        # the lines' timestamps are their positions, so the time-ordered
-        # training split is the first 90%
-        n_train = int(round(len(lines) * (1.0 - TEST_FRACTION)))
-        known = known_items_of(lines)
-        train_known = known_items_of(lines[:n_train])
-        counts = check_update_stream(producer.sent, meta, set(train_known), known)
-        train_items = {i for items in train_known.values() for i in items}
-        check(set(meta["y_ids"]) == train_items,
-              f"als_generation: {counts['y_ups']} Y UPs for the "
-              f"{len(train_items)} items of the training split")
-
-        manager = ALSServingModelManager(conf)
-        t0 = time.perf_counter()
-        manager.consume(KeyMessage(k, m) for k, m, _ in producer.sent)
-        consume_s = time.perf_counter() - t0
-        model = manager.get_model()
-        fraction = model.get_fraction_loaded()
-        check(fraction == 1.0, f"als_generation: fraction loaded {fraction}")
-
-        x_ids, x = read_part_files(promoted / meta["x_dir"])
-        y_ids, y = read_part_files(promoted / meta["y_dir"])
-        users = [x_ids[i] for i in rng.choice(len(x_ids), 256, replace=False)]
-        direct = state.serving_model(x, y, x_ids, y_ids,
-                                     known_items={u: known[u] for u in users})
-        qs = np.stack([model.get_user_vector(u) for u in users])
-        check(np.array_equal(qs, np.stack([direct.get_user_vector(u)
-                                           for u in users])),
-              "als_generation: user vectors differ after the JSON round trip")
-        excluded = [model.get_known_items(u) for u in users]
-        check(excluded == [direct.get_known_items(u) for u in users],
-              "als_generation: known items differ")
-        t0 = time.perf_counter()
-        res = model.top_n_batch(qs, 10, excluded=excluded)
-        first_top_n_s = time.perf_counter() - t0
-        want = direct.top_n_batch(qs, 10, excluded=excluded)
-        check(torch.equal(model.y_snapshot().mat, direct.y_snapshot().mat),
-              "als_generation: the served Y differs from the part files'")
-        check([[i for i, _ in r] for r in res] == [[i for i, _ in r] for r in want]
-              and all(len(r) == 10 for r in res),
-              "als_generation: top-10 ids differ from the directly loaded model's")
-        check(torch.equal(torch.tensor([[v for _, v in r] for r in res]),
-                          torch.tensor([[v for _, v in r] for r in want])),
-              "als_generation: top-10 scores differ from the directly loaded model's")
-        for r, ex in zip(res, excluded):
-            check(not ({i for i, _ in r} & ex), "als_generation: a known item came back")
-
-    stages = {"split_s": report["split_s"]}
-    for name, c in sorted(cands.items()):
-        stages[f"candidate_{name}"] = {
-            key: c[key] for key in (
-                "hyperparameters", "build_s", "prepare_s", "train_s", "pack_s",
-                "iter_s", "write_s", "evaluate_s", "evaluate_load_s",
-                "evaluate_parse_s", "evaluate_score_s", "eval", "blocks")}
-    publish_s = report["publish_model_s"] + report["publish_additional_s"]
-    device_iter_s = sum(sum(c["iter_s"]) for c in cands.values())
-    out.update(
-        combos=report["combos"], best=best, aucs=aucs, stages=stages,
-        promote_s=report["promote_s"],
-        publish_model_s=report["publish_model_s"],
-        publish_y_s=report["publish_y_s"],
-        known_items_s=report["known_items_s"],
-        publish_x_s=report["publish_x_s"],
-        publish_s=publish_s, consume_s=consume_s,
-        first_top_n_s=first_top_n_s, run_update_s=report["run_update_s"],
-        run_update_wall_s=run_s,
-        model_to_servable_s=publish_s + consume_s,
-        device_iter_share=device_iter_s / run_s,
-        published=report["published"],
-        model_bytes=len(producer.sent[0][1].encode("utf-8")),
-        messages=counts, fraction_loaded=fraction, launches=launches,
-        expected_launches=expected,
-        shape_launches={launch_key(*key): n for key, n in counted.items()},
-        held_against_plain=held, top_n_users=len(users))
-    return out, producer.sent, manager, conf
 
 
 # -- ALS speed tier ---------------------------------------------------------
@@ -1376,48 +1289,559 @@ def flagship_snapshots(dev, rng) -> dict:
             "rounds": rounds, "materializations": dict(model.y.materializations)}
 
 
-def als_speed_phase(lines, sent, manager, conf, rng) -> dict:
-    """The ALS speed tier on the generation's stream (see the module
-    docstring): a new ``ALSSpeedModelManager`` consumes it; the held-out
-    10% of the lines, the newest, goes in as two microbatches whose ``UP``s
-    both managers hear; each is checked against float64 and the serving
-    snapshot taken incrementally; then the flagship's snapshots."""
-    dev = resolve(None)
-    phase_t0 = time.perf_counter()
-    K.reset_launches()
-    speed = ALSSpeedModelManager(conf)
+# -- the ALS lambda loop through the runtime --------------------------------
+
+
+def wait_until(cond, timeout: float, what: str, layers=(), poll: float = 0.005) -> float:
+    """Poll ``cond`` until it holds and return ``time.perf_counter()`` then;
+    fail after ``timeout`` seconds, or at once if one of ``layers`` stopped
+    (a layer stops only on a fatal error or when closed)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if cond():
+            return time.perf_counter()
+        stopped = [layer.tier for layer in layers if layer.stopped]
+        check(not stopped, f"{what}: the {stopped} layer stopped")
+        check(time.monotonic() < deadline, f"{what}: not within {timeout} s")
+        time.sleep(poll)
+
+
+def counting(manager) -> list:
+    """Wrap ``manager.consume_key_message`` (the speed and serving SPI's
+    per-message call) on the instance: after each message it applies,
+    ``time.perf_counter()`` is appended to the returned list, so its length
+    is the count applied so far. Set it before the manager is handed its
+    first message."""
+    inner = manager.consume_key_message
+    applied: list = []
+
+    def counted(key, message):
+        inner(key, message)
+        applied.append(time.perf_counter())
+
+    manager.consume_key_message = counted
+    return applied
+
+
+def time_calls(obj, name: str) -> list:
+    """Wrap ``obj.<name>`` on the instance: each call that returns or raises
+    appends ``{"t0", "t1"}`` (perf_counter seconds) to the returned list.
+    Set it before a thread looks the method up."""
+    fn = getattr(obj, name)
+    calls: list = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            calls.append({"t0": t0, "t1": time.perf_counter()})
+
+    setattr(obj, name, timed)
+    return calls
+
+
+#: the runtime's own counts, read from the metrics registry: the layers'
+#: generation steps (``StepTracer``: summed seconds and items), the batch
+#: layer's input items and the speed layer's published ``UP``s
+RUNTIME_SERIES = {
+    f"{tier}_{key}": (name, f'tier="{tier}",step="generation"')
+    for tier in ("batch", "speed")
+    for key, name in (("step_s", "oryx_step_duration_seconds_sum"),
+                      ("step_items", "oryx_step_items_total"))
+}
+RUNTIME_SERIES["batch_items"] = ("oryx_batch_generation_items_total", "")
+RUNTIME_SERIES["speed_ups"] = ("oryx_speed_updates_published_total", "")
+
+
+def runtime_counts() -> dict:
+    snap = metrics.default_registry().snapshot()
+    return {key: snap.get(name, {}).get(labels, 0.0)
+            for key, (name, labels) in RUNTIME_SERIES.items()}
+
+
+def counts_since(before: dict) -> dict:
+    now = runtime_counts()
+    return {key: now[key] - before[key] for key in now}
+
+
+def append_after_tick(layer, producer, lines, timeout: float) -> tuple:
+    """Wait for the layer's pump to poll once more (its input watermark
+    moves), then send every line through ``producer``: the pump sleeps a
+    whole generation interval after that poll, so one generation reads all
+    the lines unless sending them takes longer. Returns the perf_counter
+    times of the first and the last send."""
+    seen = layer.current_input_watermark_ms
+    wait_until(lambda: layer.current_input_watermark_ms != seen, timeout,
+               f"{layer.tier} pump tick", layers=(layer,), poll=0.001)
+    t_first = time.perf_counter()
+    for ln in lines:
+        producer.send(None, ln)
+    return t_first, time.perf_counter()
+
+
+class TopicWatch:
+    """Wraps a broker's ``append`` and ``set_offset`` on the instance, for
+    what the runtime does not time itself: ``first_model`` is the
+    perf_counter time at which a ``MODEL`` / ``MODEL-REF`` first landed on
+    ``topic``, and ``commits`` holds every offset commit as ``{"group",
+    "topic", "offset", "t0", "t1"}`` (a layer commits after each tick, so a
+    group's first commit of an offset ends the generation that read to
+    it)."""
+
+    def __init__(self, broker, topic: str):
+        self.first_model = None
+        self.commits: list = []
+        append, set_offset = broker.append, broker.set_offset
+
+        def watched_append(t, key, message, *args, **kwargs):
+            out = append(t, key, message, *args, **kwargs)
+            if self.first_model is None and t == topic and key in ("MODEL", "MODEL-REF"):
+                self.first_model = time.perf_counter()
+            return out
+
+        def watched_set_offset(group, t, offset, *args, **kwargs):
+            t0 = time.perf_counter()
+            set_offset(group, t, offset, *args, **kwargs)
+            self.commits.append({"group": group, "topic": t, "offset": offset,
+                                 "t0": t0, "t1": time.perf_counter()})
+
+        broker.append = watched_append
+        broker.set_offset = watched_set_offset
+
+
+class LambdaLoop:
+    """The ALS lambda loop as a deployment runs it, on ``memory:`` topics:
+    a ``BatchLayer`` and a ``SpeedLayer`` (on the card: ``platform`` null,
+    unless ``overrides`` say otherwise) and an ``ALSServingModelManager``
+    on ``serving_device`` (None: the card) consuming the update topic from
+    ``earliest`` on a thread of its own, as the serving app does. The
+    generations' seconds and counts are the runtime's own
+    (``runtime_counts``); what it does not time — its input polls, the
+    batch layer's segment write, the offset commits, the first ``MODEL`` on
+    the update topic and each manager's applied messages — is timed by
+    wrappers set on the instances before they run. The tests drive the same
+    loop on the CPU at a small size."""
+
+    def __init__(self, tmp: str, overrides=None, broker: str = LOOP_BROKER,
+                 serving_device=None):
+        self.conf = oryx_config.overlay_on({
+            "oryx.id": "smoke",
+            "oryx.input-topic.broker": broker,
+            "oryx.update-topic.broker": broker,
+            "oryx.batch.update-class": "oryx_tpu_torch.models.als.update.ALSUpdate",
+            "oryx.speed.model-manager-class":
+                "oryx_tpu_torch.models.als.speed.ALSSpeedModelManager",
+            "oryx.batch.storage.data-dir": f"{tmp}/data",
+            "oryx.batch.storage.model-dir": f"{tmp}/model",
+            "oryx.ml.eval.test-fraction": TEST_FRACTION,
+            "oryx.ml.eval.candidates": 1,
+            "oryx.als.hyperparams.lambda": LAM,
+            "oryx.als.hyperparams.features": FEATURES,
+            "oryx.als.hyperparams.alpha": ALPHA,
+            "oryx.als.iterations": ITERATIONS,
+            **(overrides or {}),
+        }, oryx_config.get_default())
+        tp.maybe_create_topics(self.conf, "input-topic", "update-topic")
+        self.broker = tp.get_broker(broker)
+        self.input_topic = self.conf.get_string("oryx.input-topic.message.topic")
+        self.update_topic = self.conf.get_string("oryx.update-topic.message.topic")
+        self.input = tp.TopicProducerImpl(broker, self.input_topic)
+        self.watch = TopicWatch(self.broker, self.update_topic)
+        self.serving = ALSServingModelManager(self.conf, device=serving_device)
+        self.served = counting(self.serving)
+        self.serving_error = None
+        self._updates = None
+        self._serving_thread = None
+        self.batch = BatchLayer(self.conf)
+        self.speed = SpeedLayer(self.conf)
+        self.closed: list = []
+        oryx_id = self.conf.get_string("oryx.id")
+        self.batch_group = f"OryxGroup-batch-{oryx_id}"
+        self.speed_group = f"OryxGroup-speed-{oryx_id}"
+        self.batch_polls = time_calls(self.batch, "_poll_input")
+        self.speed_polls = time_calls(self.speed, "_poll_input")
+        self.segment_writes = time_calls(self.batch.data_store, "write_segment")
+        self.speed_applied: list = []
+
+    @property
+    def layers(self):
+        """The layers still meant to run (a closed one is stopped)."""
+        return tuple(layer for layer in (self.batch, self.speed)
+                     if layer not in self.closed)
+
+    @property
+    def update(self):
+        """The batch layer's update instance (``start()`` builds it)."""
+        return self.batch._update_instance
+
+    def start_serving(self) -> None:
+        self._updates = tp.ConsumeDataIterator(self.broker, self.update_topic,
+                                               "earliest")
+
+        def serve():
+            try:
+                self.serving.consume(self._updates)
+            except Exception as e:  # noqa: BLE001 — failed by the waits
+                self.serving_error = e
+
+        self._serving_thread = threading.Thread(
+            target=serve, name="SmokeServingConsumer", daemon=True)
+        self._serving_thread.start()
+
+    def start_speed(self, speed_interval: float) -> None:
+        """Start the speed layer and count what its manager applies. Nothing
+        may be published to the update topic before this returns."""
+        self.speed.start(speed_interval)
+        self.speed_applied = counting(self.speed.model_manager)
+
+    def update_size(self) -> int:
+        return self.broker.size(self.update_topic)
+
+    def wait_applied(self, applied: list, n: int, timeout: float, what: str) -> float:
+        """Wait until a manager has applied ``n`` update-topic messages;
+        returns the perf_counter time it applied the n-th."""
+        wait_until(lambda: len(applied) >= n or self.serving_error is not None,
+                   timeout, what, layers=self.layers)
+        check(self.serving_error is None,
+              f"{what}: the serving consumer failed: {self.serving_error!r}")
+        check(len(applied) == n, f"{what}: {len(applied)} applied, expected {n}")
+        return applied[n - 1]
+
+    def wait_commit(self, group: str, offset: int, since: int, timeout: float,
+                    what: str) -> dict:
+        """Wait for ``group``'s first commit of ``offset`` on the input topic
+        among the commits after the first ``since``, and return it."""
+        def found():
+            return next((c for c in self.watch.commits[since:]
+                         if c["group"] == group and c["topic"] == self.input_topic
+                         and c["offset"] == offset), None)
+
+        wait_until(lambda: found() is not None, timeout, what, layers=self.layers)
+        return found()
+
+    def run_batch(self, lines, batch_interval: float, speed_interval: float,
+                  timeout: float) -> dict:
+        """Send ``lines`` to the input topic, store offset 0 for the batch
+        layer's group (without a stored offset a layer starts at the end of
+        its input), start the serving consumer and both layers (the speed
+        layer's pump starts after the lines), wait for the batch layer to
+        commit the input topic's end, then close it, so that no second
+        generation reads the speed half's lines. Returns the produce
+        seconds, the commit and the runtime's counts over the run."""
+        t0 = time.perf_counter()
+        for ln in lines:
+            self.input.send(None, ln)
+        produce_s = time.perf_counter() - t0
+        n = self.broker.size(self.input_topic)
+        self.broker.set_offset(self.batch_group, self.input_topic, 0)
+        self.start_serving()
+        since = len(self.watch.commits)
+        before = runtime_counts()
+        t_start = time.perf_counter()
+        self.batch.start(batch_interval)
+        self.start_speed(speed_interval)
+        commit = self.wait_commit(self.batch_group, n, since, timeout,
+                                  "lambda_loop: the batch generation")
+        counts = counts_since(before)
+        self.batch.close()
+        self.closed.append(self.batch)
+        return {"produce_s": produce_s, "t_start": t_start, "commit": commit,
+                "counts": counts}
+
+    def seed_updates(self, messages, speed_interval: float) -> None:
+        """Instead of a batch generation: start the serving consumer and the
+        speed layer, then put ``messages`` (KeyMessages of another loop's
+        update topic) on this loop's update topic."""
+        self.closed.append(self.batch)
+        self.start_serving()
+        self.start_speed(speed_interval)
+        for km in messages:
+            self.broker.append(self.update_topic, km.key, km.message, km.headers)
+
+    def settle(self, timeout: float, label: str) -> dict:
+        """Wait until the speed and the serving manager have applied every
+        message on the update topic, then bring the speed manager's solver
+        caches current, so the next microbatch folds in against this
+        state."""
+        total = self.update_size()
+        t_speed = self.wait_applied(self.speed_applied, total, timeout,
+                                    f"{label}: the speed manager applies the topic")
+        self.wait_applied(self.served, total, timeout,
+                          f"{label}: the serving manager applies the topic")
+        model = self.speed.model_manager.model
+        check(model is not None and model.get_fraction_loaded() == 1.0,
+              f"{label}: the speed model is not loaded")
+        return {"total": total, "t_speed": t_speed,
+                "settle_s": settle_solvers([model.xtx_cache, model.yty_cache])}
+
+    def microbatch(self, lines, label: str, timeout: float) -> dict:
+        """Append ``lines`` just after a speed tick (``append_after_tick``)
+        and wait for the speed generation that reads them: it must be one
+        generation of exactly these lines, ending at the input topic's end
+        (no commit of the speed group inside the lines; the runtime's step
+        items are the lines; every ``UP`` carries the watermark header of
+        the input's end). Returns the published ``UP`` KeyMessages, the
+        commit that ended the generation, the runtime's generation seconds
+        and the generation's polls."""
+        interval = self.speed.generation_interval_sec
+        total = self.update_size()
+        input_start = self.broker.size(self.input_topic)
+        input_end = input_start + len(lines)
+        since, n_polls = len(self.watch.commits), len(self.speed_polls)
+        before = runtime_counts()
+        t_first, t_last = append_after_tick(self.speed, self.input, lines, timeout)
+        commit = self.wait_commit(self.speed_group, input_end, since, timeout,
+                                  f"{label}: the speed generation")
+        counts = counts_since(before)
+        split = [c["offset"] for c in self.watch.commits[since:]
+                 if c["group"] == self.speed_group and input_start < c["offset"] < input_end]
+        check(not split and counts["speed_step_items"] == len(lines)
+              and self.speed.current_input_offsets == {0: input_end},
+              f"{label}: speed commits at {split} inside the lines, "
+              f"{counts['speed_step_items']} items in the generation steps, ending "
+              f"at {self.speed.current_input_offsets}; expected one generation of "
+              f"{len(lines)} ending at {input_end} (interval {interval} s)")
+        end = self.update_size()
+        published = self.broker.read(self.update_topic, total, end - total)
+        check(len(published) == end - total, f"{label}: short update read")
+        check(counts["speed_ups"] == len(published),
+              f"{label}: {counts['speed_ups']} UPs counted, {len(published)} on the topic")
+        check({km.key for km in published} <= {"UP"},
+              f"{label}: a non-UP on the update topic")
+        wm_header = json.dumps({"offsets": {"0": input_end},
+                                "watermark_ms": self.speed.current_input_watermark_ms},
+                               separators=(",", ":"))
+        check(all((km.headers or {}).get(lineage.WATERMARK_HEADER) == wm_header
+                  for km in published),
+              f"{label}: an UP without the watermark header {wm_header}")
+        polls = [c for c in self.speed_polls[n_polls:]
+                 if c["t0"] >= t_first and c["t1"] <= commit["t0"]]
+        check(polls, f"{label}: no poll before the speed generation")
+        return {"published": published, "total": total, "end": end,
+                "t_first": t_first, "t_last": t_last, "commit": commit,
+                "generation_s": counts["speed_step_s"], "poll_t0": polls[0]["t0"],
+                "poll_s": sum(c["t1"] - c["t0"] for c in polls)}
+
+    def close(self) -> None:
+        self.speed.close()
+        self.batch.close()
+        if self._updates is not None:
+            self._updates.close()
+            self._serving_thread.join(10)
+        self.input.close()
+
+    def await_layers(self) -> None:
+        """A layer failure fails the loop: ``await_termination`` raises it."""
+        for layer in (self.batch, self.speed):
+            try:
+                layer.await_termination(timeout=0)
+            except Exception as e:  # noqa: BLE001 — re-raised as the loop's
+                raise SmokeFailure(f"lambda_loop: the {layer.tier} layer "
+                                   f"failed: {e!r}") from e
+
+
+def loop_generation(loop: LambdaLoop, lines, rng) -> dict:
+    """The batch half (see the module docstring): the 1,000,000 lines
+    through the input topic, one batch generation run by the layer, its
+    stream read back from the update topic and checked, the serving
+    manager's top-10 against the promoted part files, and the layer's own
+    work."""
+    n = len(lines)
+    with FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                        (tr, "spd_solve_batched", spd_key)]) as first:
+        K.reset_launches()
+        run = loop.run_batch(lines, BATCH_INTERVAL_S, SPEED_INTERVAL_S, 900)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        counted = dict(K.SHAPE_LAUNCHES)
+    check(loop.broker.size(loop.input_topic) == n, "lambda_loop: input topic size")
+    runtime = run["counts"]
+    check(runtime["batch_items"] == runtime["batch_step_items"] == n,
+          f"lambda_loop: the batch layer counted {runtime['batch_items']} items "
+          f"({runtime['batch_step_items']} in its generation steps), expected {n}")
+    n_gen = loop.update_size()
+    sent = [(km.key, km.message, km.headers)
+            for km in loop.broker.read(loop.update_topic, 0, n_gen)]
+    check(len(sent) == n_gen, "lambda_loop: short read of the update topic")
+
+    update = loop.update
+    report = update.report
+    cands = report["candidates"]
+    check(len(cands) == 1 and all(
+        "failed" not in c and "eval" in c for c in cands.values()),
+          f"lambda_loop: not every candidate built and evaluated: "
+          f"{ {k: c.get('failed') for k, c in cands.items()} }")
+    check(all(c["device"].startswith("cuda") for c in cands.values()),
+          "lambda_loop: a candidate was not built on the card")
+    aucs = {k: c["eval"] for k, c in cands.items()}
+    best = report["best"]
+    check(aucs[best] == max(aucs.values()) and aucs[best] > 0.75,
+          f"lambda_loop: promoted {best} of AUCs {aucs}")
+    expected = sum(ITERATIONS * (c["blocks"]["user"] + c["blocks"]["item"])
+                   for c in cands.values())
+    for wrapper in ALS_WRAPPERS:
+        check(launches[wrapper] == expected,
+              f"lambda_loop: {launches[wrapper]} {wrapper} launches in the "
+              f"batch half, expected {expected} (iterations x blocks)")
+    others = {k: v for k, v in launches.items() if k not in ALS_WRAPPERS and v}
+    check(not others, f"lambda_loop: other kernels launched in the batch half: {others}")
+    held = hold_path_launches(first, counted, "lambda_loop.batch")
+    promoted = loop.batch.model_store.latest()
+    meta = als_codec.pmml_to_meta(pmmlutils.read(promoted / "model.pmml"))
+    # the lines' timestamps are their positions, so the time-ordered
+    # training split is the first 90%
+    n_train = int(round(n * (1.0 - TEST_FRACTION)))
+    known = known_items_of(lines)
+    train_known = known_items_of(lines[:n_train])
+    counts = check_update_stream(sent, meta, set(train_known), known)
+    train_items = {i for items in train_known.values() for i in items}
+    check(set(meta["y_ids"]) == train_items,
+          f"lambda_loop: {counts['y_ups']} Y UPs for the {len(train_items)} "
+          "items of the training split")
+    check(sent[0][0] == "MODEL" and len(sent[0][1]) <= tp.MAX_REQUEST_SIZE,
+          "lambda_loop: the model message is not an inline MODEL under the cap")
+
+    # the layer's own work: one segment (one non-empty generation), the
+    # offset, the lineage stamp
+    segments = loop.batch.data_store.segments()
+    check(len(segments) == 1, f"lambda_loop: {len(segments)} data segments")
+    with open(segments[0] / "part-00000.jsonl", "rb") as f:
+        seg_lines = sum(chunk.count(b"\n") for chunk in iter(lambda: f.read(1 << 24), b""))
+    check(seg_lines == n, f"lambda_loop: the segment holds {seg_lines} lines")
+    check(loop.broker.get_offset(loop.batch_group, loop.input_topic)
+          == loop.broker.size(loop.input_topic),
+          "lambda_loop: the stored offset is not the input topic's size")
+    stamp = lineage.parse_stamp(sent[0][2])
+    context = loop.batch.get_context()
+    check(stamp is not None and stamp["offsets"] == {"0": n}
+          and context.input_offsets == {0: n}
+          and stamp["watermark_ms"] == context.input_watermark_ms
+          == loop.batch.current_input_watermark_ms,
+          f"lambda_loop: the MODEL's stamp {stamp} is not the context's "
+          f"offsets and watermark")
+    check(all(lineage.GENERATION_HEADER in (h or {}) for _, _, h in sent),
+          "lambda_loop: a published message lacks the generation header")
+
+    # publish-to-servable through the update topic
+    t_served = loop.wait_applied(loop.served, n_gen, 300,
+                                 "lambda_loop: serving consumes the generation")
+    model = loop.serving.get_model()
+    fraction = model.get_fraction_loaded()
+    check(fraction == 1.0, f"lambda_loop: fraction loaded {fraction}")
+    x_ids, x = read_part_files(promoted / meta["x_dir"])
+    y_ids, y = read_part_files(promoted / meta["y_dir"])
+    users = [x_ids[i] for i in rng.choice(len(x_ids), 256, replace=False)]
+    direct = state.serving_model(x, y, x_ids, y_ids,
+                                 known_items={u: known[u] for u in users})
+    qs = np.stack([model.get_user_vector(u) for u in users])
+    check(np.array_equal(qs, np.stack([direct.get_user_vector(u) for u in users])),
+          "lambda_loop: user vectors differ after the JSON round trip")
+    excluded = [model.get_known_items(u) for u in users]
+    check(excluded == [direct.get_known_items(u) for u in users],
+          "lambda_loop: known items differ")
     t0 = time.perf_counter()
-    speed.consume(KeyMessage(k, m) for k, m, _ in sent)
-    speed_load_s = time.perf_counter() - t0
-    fraction = speed.model.get_fraction_loaded()
-    check(fraction == 1.0, f"als_speed: speed fraction loaded {fraction}")
-    model = manager.get_model()
+    res = model.top_n_batch(qs, 10, excluded=excluded)
+    first_top_n_s = time.perf_counter() - t0
+    want = direct.top_n_batch(qs, 10, excluded=excluded)
+    check(torch.equal(model.y_snapshot().mat, direct.y_snapshot().mat),
+          "lambda_loop: the served Y differs from the part files'")
+    check([[i for i, _ in r] for r in res] == [[i for i, _ in r] for r in want]
+          and all(len(r) == 10 for r in res),
+          "lambda_loop: top-10 ids differ from the directly loaded model's")
+    check(torch.equal(torch.tensor([[v for _, v in r] for r in res]),
+                      torch.tensor([[v for _, v in r] for r in want])),
+          "lambda_loop: top-10 scores differ from the directly loaded model's")
+    for r, ex in zip(res, excluded):
+        check(not ({i for i, _ in r} & ex), "lambda_loop: a known item came back")
+
+    stages = {"split_s": report["split_s"]}
+    for name, c in sorted(cands.items()):
+        stages[f"candidate_{name}"] = {
+            key: c[key] for key in (
+                "hyperparameters", "build_s", "prepare_s", "train_s", "pack_s",
+                "iter_s", "write_s", "evaluate_s", "evaluate_load_s",
+                "evaluate_parse_s", "evaluate_score_s", "eval", "blocks")}
+    # the layer polls only in the tick that has input: every poll is the
+    # generation's
+    poll_t0 = loop.batch_polls[0]["t0"]
+    commit, segment = run["commit"], loop.segment_writes[-1]
+    run_update_s = report["run_update_s"]
+    device_iter_s = sum(sum(c["iter_s"]) for c in cands.values())
+    return {
+        "lines": n, "produce_s": run["produce_s"],
+        "produce_us_per_line": run["produce_s"] / n * 1e6,
+        "batch_interval_s": BATCH_INTERVAL_S,
+        "generation": {
+            "wall_s": commit["t1"] - poll_t0,
+            "poll_s": sum(c["t1"] - c["t0"] for c in loop.batch_polls),
+            "step_s": runtime["batch_step_s"],
+            "run_update_s": run_update_s,
+            "segment_write_s": segment["t1"] - segment["t0"],
+            "offsets_s": commit["t1"] - commit["t0"],
+            "start_to_offsets_s": commit["t1"] - run["t_start"],
+        },
+        "combos": report["combos"], "best": best, "aucs": aucs, "stages": stages,
+        "promote_s": report["promote_s"],
+        "publish_model_s": report["publish_model_s"],
+        "publish_y_s": report["publish_y_s"],
+        "known_items_s": report["known_items_s"],
+        "publish_x_s": report["publish_x_s"],
+        "device_iter_share": device_iter_s / run_update_s,
+        "publish_to_servable_s": t_served - loop.watch.first_model,
+        # run_update returns just before the segment write begins
+        "served_after_generation_s": t_served - segment["t0"],
+        "first_top_n_s": first_top_n_s,
+        "published": report["published"],
+        "model_bytes": len(sent[0][1].encode("utf-8")),
+        "messages": counts, "update_topic_messages": n_gen,
+        "fraction_loaded": fraction, "launches": launches,
+        "expected_launches": expected,
+        "shape_launches": {launch_key(*key): c for key, c in counted.items()},
+        "held_against_plain": held, "top_n_users": len(users),
+        "segment_lines": seg_lines, "stamp": {k: stamp[k] for k in (
+            "offsets", "watermark_ms", "max_event_ms", "origin")},
+    }
+
+
+def loop_speed(loop: LambdaLoop, lines, rng) -> dict:
+    """The speed half (see the module docstring): the held-out 100,000
+    newest lines as two 50,000-line microbatches through the input topic,
+    each appended while the pump is idle, after both managers applied every
+    message on the update topic and the speed manager's solver caches were
+    brought current; each microbatch's ``UP``s, read from the update topic,
+    checked against float64 and served from an incremental snapshot."""
+    dev = resolve(None)
+    manager = loop.speed.model_manager
+    model = loop.serving.get_model()
     full_builds = model.y.materializations["full"]
-    n_train = int(round(len(lines) * (1.0 - TEST_FRACTION)))
+    n = len(lines)
+    n_train = int(round(n * (1.0 - TEST_FRACTION)))
     held_out = lines[n_train:]
     batches = [held_out[j:j + SPEED_MICROBATCH]
                for j in range(0, len(held_out), SPEED_MICROBATCH)]
-    out: dict = {"speed_load_s": speed_load_s, "microbatches": []}
+    out: dict = {"interval_s": SPEED_INTERVAL_S, "microbatches": []}
+    phase_t0 = time.perf_counter()
+    K.reset_launches()
     for b, batch in enumerate(batches):
-        label = f"als_speed microbatch {b}"
-        solver_settle_s = settle_solvers([speed.model.xtx_cache,
-                                          speed.model.yty_cache])
-        x_ids, x0, _ = speed.model.x.host_matrix()
-        y_ids, y0, _ = speed.model.y.host_matrix()
+        label = f"lambda_loop.speed microbatch {b}"
+        settled = loop.settle(300, label)
+        if b == 0:
+            out["speed_load_s"] = settled["t_speed"] - loop.watch.first_model
+        x_ids, x0, _ = manager.model.x.host_matrix()
+        y_ids, y0, _ = manager.model.y.host_matrix()
         pre = (({s: i for i, s in enumerate(x_ids)}, x0),
                ({s: i for i, s in enumerate(y_ids)}, y0))
         incremental = model.y.materializations["incremental"]
-        t_in = time.perf_counter()
-        ups = speed.build_updates([KeyMessage(None, ln) for ln in batch])
-        build_s = time.perf_counter() - t_in
-        t0 = time.perf_counter()
-        manager.consume(KeyMessage("UP", u) for u in ups)
-        serving_consume_s = time.perf_counter() - t0
+        mb = loop.microbatch(batch, label, 3 * SPEED_INTERVAL_S + 120)
+        end, commit = mb["end"], mb["commit"]
+        ups = [km.message for km in mb["published"]]
+        t_applied = loop.wait_applied(loop.served, end, 300,
+                                      f"{label}: serving applies the UPs")
         snapshot_ms, snap = timed_snapshot_ms(model)
-        input_to_servable_s = time.perf_counter() - t_in
-        t0 = time.perf_counter()
-        speed.consume(KeyMessage("UP", u) for u in ups)
-        speed_consume_s = time.perf_counter() - t0
+        t_servable = time.perf_counter()
+        t_speed_heard = loop.wait_applied(loop.speed_applied, end, 300,
+                                          f"{label}: the speed manager hears its UPs")
         counts = check_speed_updates(ups, pair_values(batch), pre, rng, label)
         check(model.y.materializations == {"full": full_builds,
                                            "incremental": incremental + 1},
@@ -1431,29 +1855,66 @@ def als_speed_phase(lines, sent, manager, conf, rng) -> dict:
             if up[0] == "X":
                 check(up[3][0] in model.get_known_items(up[1]),
                       f"{label}: an UP's item is not among the known items")
+        poll_t0, t_last = mb["poll_t0"], mb["t_last"]
+        stages = {k: manager.report[k] for k in (
+            "prepare_s", "solver_s", "gather_s", "foldin_s", "format_s")}
+        build_s = sum(stages.values())
         record = {
-            "lines": len(batch), "interactions": speed.report["interactions"],
+            "lines": len(batch), "interactions": manager.report["interactions"],
             "ups": len(ups), "x_ups": counts["X"]["ups"],
             "y_ups": counts["Y"]["ups"], "checks": counts,
-            "build_updates_s": build_s,
-            "stages_s": {k: speed.report[k] for k in (
-                "prepare_s", "solver_s", "gather_s", "foldin_s", "format_s")},
+            "append_s": t_last - mb["t_first"],
+            "append_to_servable_s": t_servable - t_last,
+            "append_to_servable_without_wait_s": t_servable - poll_t0,
+            "wait_for_tick_s": poll_t0 - t_last,
+            "pump": {"poll_s": mb["poll_s"],
+                     "generation_s": mb["generation_s"],
+                     "build_updates_s": build_s,
+                     "up_publish_s": mb["generation_s"] - build_s,
+                     "serving_lag_s": t_applied - commit["t0"],
+                     "speed_lag_s": t_speed_heard - commit["t0"]},
+            "stages_s": stages,
             "ups_per_s": len(ups) / build_s,
-            "solver_settle_s": solver_settle_s,
-            "serving_consume_s": serving_consume_s,
-            "speed_consume_s": speed_consume_s,
+            "solver_settle_s": settled["settle_s"],
             "snapshot_incremental_ms": snapshot_ms,
             "snapshot_full_upload_ms": full_ms, "items": snap.n,
-            "input_to_servable_s": input_to_servable_s,
             "top_n": check_served_top_n(model, touched, rng, label),
             "fold_in_api": check_fold_in_api(model, rng, label),
         }
         out["microbatches"].append(record)
-    out["flagship"] = flagship_snapshots(dev, rng)
     out["launches"] = dict(K.LAUNCHES)
     out["seconds"] = time.perf_counter() - phase_t0
     check(not any(out["launches"].values()),
-          f"als_speed: kernels launched on the speed path: {out['launches']}")
+          f"lambda_loop: kernels launched in the speed half: {out['launches']}")
+    out["flagship"] = flagship_snapshots(dev, rng)
+    return out
+
+
+def lambda_loop_phase(lines, rng) -> dict:
+    """The ALS lambda loop through the runtime (see the module docstring):
+    the batch half, then the speed half; any layer failure, quarantined
+    generation, corrupt record or failed send fails the phase."""
+    registry = metrics.default_registry()
+    before = registry.snapshot()
+    with tempfile.TemporaryDirectory(prefix="oryx-loop-") as tmp:
+        loop = LambdaLoop(tmp)
+        try:
+            out = {"batch": loop_generation(loop, lines, rng)}
+            out["speed"] = loop_speed(loop, lines, rng)
+            check(not loop.speed.stopped, "lambda_loop: the speed layer stopped")
+        finally:
+            loop.close()
+        loop.await_layers()
+    after = registry.snapshot()
+    failures = {}
+    for name in ("oryx_quarantined_generations_total", "oryx_corrupt_records_total",
+                 "oryx_layer_failures_total", "oryx_topic_send_failures_total"):
+        for labels, value in after.get(name, {}).items():
+            delta = value - before.get(name, {}).get(labels, 0.0)
+            if delta:
+                failures[f"{name}{{{labels}}}"] = delta
+    check(not failures, f"lambda_loop: failures counted: {failures}")
+    out["failures"] = failures
     return out
 
 
@@ -1817,6 +2278,7 @@ def kmeans_train_phase(points) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1946,12 +2408,10 @@ def main() -> int:
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
-    # last: mostly host work, and nothing after them is profiled
-    generation, sent, manager, conf = als_generation_phase(lines, rng)
-    emit("als_generation", **generation)
-    speed = als_speed_phase(lines, sent, manager, conf, rng)
-    emit("als_speed", **speed)
-    del sent, manager
+    # last: mostly host work, and nothing after it is profiled
+    loop = lambda_loop_phase(lines, rng)
+    emit("lambda_loop", **loop)
+    generation, speed = loop["batch"], loop["speed"]
 
     # each entry's launches at its shape, from the run of the path that
     # reaches it: the ALS run above, build_model (100k x 64), kmeans_train's
@@ -1980,19 +2440,20 @@ def main() -> int:
               f"{source}: not launched on its path")
     # each later path's own launch counts, read just after it ran
     paths = {
-        "als_generation": {w: generation["launches"][w] for w in ALS_WRAPPERS},
+        "lambda_loop.batch": {w: generation["launches"][w] for w in ALS_WRAPPERS},
         "kmeans_generation": {"kmeans_assign_accumulate":
                               km_update["generation"]["launches"]},
-        "als_speed": speed["launches"],
+        "lambda_loop.speed": speed["launches"],
     }
     # each later path's launches held against the plain versions, one
     # record per shape the path launched at
     path_checks = {
-        "als_generation": generation["held_against_plain"],
+        "lambda_loop.batch": generation["held_against_plain"],
         "kmeans_generation": km_update["generation"]["held_against_plain"],
     }
     print(json.dumps({"kernels": entries, "paths": paths,
-                      "path_checks": path_checks, "gpu": smi}),
+                      "path_checks": path_checks, "gpu": smi,
+                      "smoke_s": time.perf_counter() - t_main}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,3 +6,5 @@ nothing here imports it or JAX. Layout mirrors the reference (``api/``,
 means the CUDA card: without one it raises unless the caller passes
 ``device="cpu"`` (see :mod:`oryx_tpu_torch.common.device`).
 """
+
+__version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Speed-tier SPI.
 
 A copy of the JAX package's
-``oryx_tpu/api/speed.py`` without its unused ``close`` hook (host code, no
-JAX), held equal to it by ``tests/test_torch_kmeans.py``.
+``oryx_tpu/api/speed.py`` (host code, no JAX), held equal to it by
+``tests/test_torch_kmeans.py``.
 Below, "the reference" is the original Oryx that module was modelled on.
 
 Equivalent of the reference's SpeedModelManager / SpeedModel
@@ -35,6 +35,9 @@ class SpeedModelManager(abc.ABC):
     @abc.abstractmethod
     def build_updates(self, new_data: Sequence[KeyMessage]) -> Iterable[str]:
         """Incremental updates for one microbatch, published with key "UP"."""
+
+    def close(self) -> None:
+        pass
 
 
 class AbstractSpeedModelManager(SpeedModelManager):

@@ -624,3 +624,72 @@ def test_speed_updates_served_on_the_card_equal_the_cpu(cuda_device, tmp_path):
     got = model.top_n_cosine(qs[:3], 10)
     want = cpu_model.top_n_cosine(qs[:3], 10)
     assert [i for i, _ in got] == [i for i, _ in want]
+
+
+@pytest.mark.cuda
+def test_lambda_loop_on_the_card_emits_the_cpu_loop_updates(cuda_device, tmp_path):
+    """The ALS lambda loop through ``memory:`` topics with the layers on the
+    card (``platform`` null: ``chip_smoke.LambdaLoop`` at a small size):
+    the batch layer trains on the card and launches both ALS kernels. The
+    same loop with ``platform = "cpu"``, on its own broker, takes that
+    generation's stream on its update topic, then both loops fold in the
+    same two microbatches: the speed layers' ``UP`` streams are equal byte
+    for byte (the fold-in is host float64 on either platform, so the same
+    stream and lines give the same bytes), and the serving managers on the
+    card and on the CPU give the same top-10 ids, scores within 1e-5. The
+    generation itself, card against CPU, is held by
+    ``test_als_generation_on_the_card_matches_the_cpu``."""
+    from oryx_tpu_torch.transport import topic as tp
+    from chip_smoke import LambdaLoop
+
+    rng = np.random.default_rng(SEED + 7)
+    lines = _als_lines(rng, 600, 300, 10)
+    gen_lines, held_out = lines[:-1000], lines[-1000:]
+    small = {"oryx.als.hyperparams.features": 8, "oryx.als.iterations": 2}
+    tp.reset_memory_brokers()
+    card = LambdaLoop(str(tmp_path / "card"), {**small, "oryx.id": "card"},
+                      broker="memory:card")
+    cpu = LambdaLoop(str(tmp_path / "cpu"), {
+        **small, "oryx.id": "cpu",
+        "oryx.batch.streaming.config.platform": "cpu",
+        "oryx.speed.streaming.config.platform": "cpu"},
+        broker="memory:cpu", serving_device="cpu")
+    try:
+        K.reset_launches()
+        card.run_batch(gen_lines, 0.2, 0.5, 300)
+        cands = card.update.report["candidates"].values()
+        assert all(c["device"].startswith("cuda") for c in cands)
+        assert card.batch.get_context().device.type == "cuda"
+        want = sum(2 * (c["blocks"]["user"] + c["blocks"]["item"]) for c in cands)
+        for kernel in ("gather_gramian_accumulate", "spd_solve_batched"):
+            assert K.LAUNCHES[kernel] == want
+        generation = card.broker.read(card.update_topic, 0, card.update_size())
+        cpu.seed_updates(generation, 0.5)
+        for b in range(2):
+            mb_lines = held_out[b * 500:(b + 1) * 500]
+            got = {}
+            for name, loop in (("card", card), ("cpu", cpu)):
+                loop.settle(60, f"{name} microbatch {b}")
+                mb = loop.microbatch(mb_lines, f"{name} microbatch {b}", 60)
+                got[name] = [km.message for km in mb["published"]]
+            assert len(got["card"]) > 250 and got["card"] == got["cpu"]
+        for loop in (card, cpu):
+            loop.wait_applied(loop.served, loop.update_size(), 60, "serving")
+    finally:
+        card.close()
+        cpu.close()
+        tp.reset_memory_brokers()
+    card.await_layers()
+    cpu.await_layers()
+    model, cpu_model = card.serving.get_model(), cpu.serving.get_model()
+    assert model.y_snapshot().mat.device.type == "cuda"
+    users = sorted(model.all_user_ids())[:64]
+    qs = np.stack([model.get_user_vector(u) for u in users])
+    excluded = [model.get_known_items(u) for u in users]
+    assert excluded == [cpu_model.get_known_items(u) for u in users]
+    got = model.top_n_batch(qs, 10, excluded=excluded)
+    want = cpu_model.top_n_batch(qs, 10, excluded=excluded)
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0,
+                                   atol=1e-5)

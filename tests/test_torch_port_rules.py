@@ -19,9 +19,13 @@ import torch
 
 import oryx_tpu_torch
 from oryx_tpu_torch import state
+from oryx_tpu_torch.api.batch import BatchLayerUpdate
 from oryx_tpu_torch.api.keymessage import KeyMessage
 from oryx_tpu_torch.common import config
+from oryx_tpu_torch.common import metrics
 from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
 from oryx_tpu_torch.models.als import train
 from oryx_tpu_torch.models.als.data import RatingBatch
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
@@ -69,6 +73,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     scanned = {os.path.relpath(p, PKG) for p in sources}
     assert {"common/lockutils.py", "ops/solver.py", "models/als/foldin.py",
             "models/als/speed.py", "models/als/vectors.py"} <= scanned
+    assert {"common/metrics.py", "common/spans.py", "common/blackbox.py",
+            "common/faults.py", "common/resilience.py", "common/classutils.py",
+            "common/tracing.py", "transport/topic.py", "parallel/mesh.py",
+            "lambda_rt/layer.py", "lambda_rt/batch.py",
+            "lambda_rt/speed.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -152,3 +161,57 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+class _NeverRun(BatchLayerUpdate):
+    """An update whose generation must never run (the test below)."""
+
+    def __init__(self, config, device=None):
+        self.device = resolve(device)
+
+    def run_update(self, *args):
+        raise AssertionError("a generation ran")
+
+
+@pytest.mark.parametrize("tier", ["batch", "speed"])
+def test_layers_need_the_card_unless_configured_for_the_cpu(tier, tmp_path):
+    """A layer with ``platform = null`` (the card) raises from ``start()``
+    on a host without one: before any thread is spawned and before any
+    generation, so the missing card is never a quarantined generation."""
+    from oryx_tpu_torch.transport import topic as tp
+
+    tp.reset_memory_brokers()
+
+    def layer(platform):
+        conf = config.overlay_on({
+            "oryx.id": f"rules-{tier}",
+            "oryx.batch.update-class": f"{__name__}._NeverRun",
+            "oryx.speed.model-manager-class":
+                "oryx_tpu_torch.models.als.speed.ALSSpeedModelManager",
+            "oryx.batch.storage.data-dir": str(tmp_path / "data"),
+            "oryx.batch.storage.model-dir": str(tmp_path / "model"),
+            f"oryx.{tier}.streaming.config.platform": platform,
+        }, config.get_default())
+        return (BatchLayer if tier == "batch" else SpeedLayer)(conf)
+
+    quarantined = metrics.default_registry().snapshot().get(
+        "oryx_quarantined_generations_total", {}).get(f'tier="{tier}"', 0.0)
+    try:
+        cpu = layer("cpu")
+        cpu.start(interval_sec=0.05)
+        assert cpu._threads and cpu.get_context().device.type == "cpu"
+        cpu.close()
+        card = layer(None)
+        if torch.cuda.is_available():
+            card.start(interval_sec=3600)
+            assert card.get_context().device.type == "cuda"
+            card.close()
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                card.start(interval_sec=0.05)
+            assert card._threads == [] and not card.stopped
+            assert metrics.default_registry().snapshot().get(
+                "oryx_quarantined_generations_total", {}).get(
+                f'tier="{tier}"', 0.0) == quarantined
+    finally:
+        tp.reset_memory_brokers()
