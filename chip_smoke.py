@@ -160,13 +160,52 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            rounds of 10,000 changed and 1,000 new rows, each snapshot timed
            incrementally beside a whole upload of the same store
            (``torch.equal``), and 16 queries' top-10 equal to a model loaded
-           fresh. Any quarantined generation, corrupt record, failed send or
-           layer failure fails the phase.
+           fresh. Any quarantined generation, corrupt record, failed send,
+           layer failure or serving consumer restart fails the phase.
+  serving_http
+           the serving layer's HTTP app (``ServingLayer`` on the card, on a
+           free port), inside the loop before it closes: it replays the
+           loop's update topic from ``earliest`` (the stamped ``MODEL``,
+           the ``UP``s of the generation and of both microbatches) with the
+           ALS resources, read-write on the loop's input topic; printed:
+           ``replay_to_ready_s`` (``start()`` to the first 200 from
+           ``/ready``) and ``replay_to_current_s`` (to its manager having
+           applied every message). Then, through stdlib ``http.client``:
+           1,000 seeded users' ``/recommend?howMany=10``, with and without
+           ``considerKnownItems``, against the loop's in-process manager's
+           ``top_n`` (ids equal wherever neighbouring scores differ by more
+           than 1e-5 relative, scores within 1e-5), and every other read
+           route once against its direct call (``/recommendToMany``,
+           ``/recommendToAnonymous``, ``/similarity``, ``/estimate``,
+           ``/because``, ``/knownItems``, ``/mostPopularItems``,
+           ``/user/allIDs``, ``/recommend`` as CSV), each answer carrying
+           the batch layer's generation id in ``x-oryx-model-generation``;
+           1,000 seeded lines through ``POST /ingest``, which must land on
+           the input topic, be folded in by the running speed layer and be
+           applied by both managers (``ingest_to_served_s``: the last
+           ``/ingest`` response to the layer having applied the last
+           ``UP``), then 100 of their users' ``/recommend`` checked again;
+           closed-loop load at 1, 16, 64 and 256 keep-alive connections from
+           a client process (``multiprocessing``, spawn): requests, errors
+           (0), qps, p50 / p99 ms, and from the coalescer's registry the
+           device calls, mean and largest batch (as the upper edge of its
+           histogram bucket) and padding rows (each connection's untimed
+           first request is among the calls); the mean batch must be above
+           1 at 64 and 256; the layer's Y on the card; ``/readyz`` 200 with
+           the model loaded, ``/metrics`` counting the ALS routes, 404 for
+           ``/nope`` and ``/debug/profile``; after ``close()`` no thread of
+           the layer and its port free. No kernel may launch. The k-means
+           half runs inside ``kmeans_update`` (a small layer on an update
+           topic of its own holding that phase's ``MODEL`` and speed
+           ``UP``s: 1,000 ``/assign`` and ``/distanceToNearest`` against
+           ``nearest_cluster``, 100 lines through ``POST /add`` onto its
+           input topic) and is printed in this line as ``kmeans``.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the loop's batch half
-``lambda_loop.batch``, in the k-means generation, and in the loop's speed
-half ``lambda_loop.speed``, where all three must be 0; ``path_checks``:
+``lambda_loop.batch``, in the k-means generation, in the loop's speed
+half ``lambda_loop.speed`` and in the HTTP app's path ``serving_http``,
+where the last two must be all 0; ``path_checks``:
 for each generation, one record per kernel and shape it launched at, that
 launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Each kernels-line entry's ``launches``
@@ -182,8 +221,11 @@ at once.
 
 from __future__ import annotations
 
+import http.client
 import json
+import multiprocessing as mp
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -196,6 +238,7 @@ import torch
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
 from oryx_tpu_torch.common import config as oryx_config
+from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics
 from oryx_tpu_torch.common.device import resolve
@@ -213,7 +256,9 @@ from oryx_tpu_torch.models.kmeans.speed import KMeansSpeedModelManager
 from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
 from oryx_tpu_torch.ops import _build
 from oryx_tpu_torch.ops import kernels as K
+from oryx_tpu_torch.ops import vectormath
 from oryx_tpu_torch.pmml import pmmlutils
+from oryx_tpu_torch.serving.app import ServingLayer
 from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch import state
 
@@ -271,6 +316,17 @@ BATCH_INTERVAL_S, SPEED_INTERVAL_S = 1.0, 2.0
 # changed and 1,000 new rows
 SPEED_MICROBATCH, SPEED_SAMPLES = 50_000, 256
 FLAGSHIP_CHANGED, FLAGSHIP_NEW = 10_000, 1_000
+
+# the serving layer's HTTP app on the loop's update topic: 1,000 users'
+# /recommend (with and without their known items) against the loop's
+# in-process model, 1,000 ingested lines (100 of their users checked
+# after), closed-loop load at four concurrencies (connections, requests)
+# from a client process; scores within HTTP_REL relative. k-means: 1,000
+# queries of each route and 100 /add lines
+HTTP_USERS, HTTP_INGEST_LINES, HTTP_TOUCHED = 1_000, 1_000, 100
+HTTP_LOAD = ((1, 400), (16, 1_500), (64, 3_000), (256, 3_000))
+HTTP_REL = 1e-5
+HTTP_KMEANS_QUERIES, HTTP_KMEANS_ADDS = 1_000, 100
 
 
 class SmokeFailure(AssertionError):
@@ -1901,6 +1957,7 @@ def lambda_loop_phase(lines, rng) -> dict:
         try:
             out = {"batch": loop_generation(loop, lines, rng)}
             out["speed"] = loop_speed(loop, lines, rng)
+            out["serving_http"] = serving_http_phase(loop, rng)
             check(not loop.speed.stopped, "lambda_loop: the speed layer stopped")
         finally:
             loop.close()
@@ -1908,13 +1965,477 @@ def lambda_loop_phase(lines, rng) -> dict:
     after = registry.snapshot()
     failures = {}
     for name in ("oryx_quarantined_generations_total", "oryx_corrupt_records_total",
-                 "oryx_layer_failures_total", "oryx_topic_send_failures_total"):
+                 "oryx_layer_failures_total", "oryx_topic_send_failures_total",
+                 "oryx_serving_consumer_restarts_total"):
         for labels, value in after.get(name, {}).items():
             delta = value - before.get(name, {}).get(labels, 0.0)
             if delta:
                 failures[f"{name}{{{labels}}}"] = delta
     check(not failures, f"lambda_loop: failures counted: {failures}")
     out["failures"] = failures
+    return out
+
+
+
+# -- the serving layer's HTTP app ------------------------------------------------
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection (stdlib ``http.client``)."""
+
+    def __init__(self, port: int, timeout: float = 60.0):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+
+    def request(self, method: str, path: str, body=None, headers=None) -> tuple:
+        """``(status, headers with lower-case names, body bytes)``."""
+        self.conn.request(method, path, body=body, headers=headers or {})
+        resp = self.conn.getresponse()
+        data = resp.read()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, data
+
+    def json(self, path: str, generation: "str | None" = None, headers=None):
+        """GET ``path``, which must answer 200 (and, with ``generation``,
+        carry that ``x-oryx-model-generation``); returns the parsed body."""
+        status, head, data = self.request("GET", path, headers=headers)
+        check(status == 200, f"serving_http: GET {path}: {status} {data[:200]!r}")
+        if generation is not None:
+            check(head.get("x-oryx-model-generation") == generation,
+                  f"serving_http: GET {path}: generation header "
+                  f"{head.get('x-oryx-model-generation')!r}, expected {generation!r}")
+        return json.loads(data)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def check_same_top_n(got, want, label: str, field: str = "value") -> None:
+    """``got`` (a body's ``[{"id", field}]``) against ``want`` (``(id,
+    score)`` pairs): scores within ``HTTP_REL`` relative, and ids equal
+    wherever neighbouring scores are not within it of each other (a near
+    tie may order its ids either way, but holds the same ids)."""
+    check(len(got) == len(want), f"{label}: {len(got)} results, expected {len(want)}")
+    gs = [float(e[field]) for e in got]
+    ws = [float(v) for _, v in want]
+    close = lambda a, b: abs(a - b) <= HTTP_REL * max(abs(a), abs(b), 1e-30)  # noqa: E731
+    check(all(close(a, b) for a, b in zip(gs, ws)),
+          f"{label}: scores {gs} differ from {ws}")
+    start = 0
+    for j in range(1, len(got) + 1):
+        if j == len(got) or not close(ws[j], ws[j - 1]):
+            check({e["id"] for e in got[start:j]} == {i for i, _ in want[start:j]},
+                  f"{label}: ids {[e['id'] for e in got]} differ from "
+                  f"{[i for i, _ in want]}")
+            start = j
+
+
+def http_load(port: int, paths: list, concurrency: int, n_requests: int) -> dict:
+    """Closed-loop clients, run in a process of their own: ``concurrency``
+    threads, each on its own keep-alive connection (one untimed request
+    first, so that connecting is not timed), send ``GET`` requests for
+    ``paths`` in turn until ``n_requests`` have been sent, each waiting for
+    its answer before the next. Returns the count, the errors (a status
+    other than 200 or a failed request), the seconds and the latency
+    percentiles in milliseconds."""
+    lock = threading.Lock()
+    issued = [0]
+    latencies: list = []
+    errors: list = []
+    start = threading.Barrier(concurrency + 1)
+
+    def client(c: int) -> None:
+        conn = HttpClient(port)
+        mine = []
+        try:
+            conn.request("GET", paths[c % len(paths)])
+            start.wait()
+            while True:
+                with lock:
+                    j = issued[0]
+                    issued[0] += 1
+                if j >= n_requests:
+                    break
+                t0 = time.perf_counter()
+                try:
+                    status, _, _ = conn.request("GET", paths[j % len(paths)])
+                except (OSError, http.client.HTTPException) as e:
+                    errors.append(repr(e))
+                    conn.close()
+                    conn = HttpClient(port)
+                    continue
+                mine.append(time.perf_counter() - t0)
+                if status != 200:
+                    errors.append(status)
+        finally:
+            conn.close()
+            with lock:
+                latencies.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(concurrency)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    ms = np.sort(np.asarray(latencies)) * 1000.0
+    return {"concurrency": concurrency, "requests": len(latencies),
+            "errors": len(errors), "error_samples": errors[:5],
+            "seconds": seconds, "qps": len(latencies) / seconds,
+            "p50_ms": float(np.percentile(ms, 50)) if len(ms) else None,
+            "p99_ms": float(np.percentile(ms, 99)) if len(ms) else None}
+
+
+def coalescer_counts() -> tuple:
+    """The coalescer's batch-size histogram (per-bucket counts, sum, count)
+    and its padding rows so far, from the port's registry."""
+    registry = metrics.default_registry()
+    rows = registry.get("oryx_coalescer_batch_size").bucket_samples()
+    _, counts, total, n = rows[0] if rows else ((), [], 0.0, 0)
+    pad = registry.get("oryx_coalescer_pad_waste_rows_total").value
+    return list(counts), float(total), int(n), float(pad)
+
+
+def coalescer_since(before: tuple) -> dict:
+    """The coalescer's calls since ``before``: their count, mean real batch,
+    the largest batch as the upper edge of the highest bucket that counted
+    one (``max_batch_le``), and the padding rows."""
+    counts, total, n, pad = coalescer_counts()
+    c0, t0, n0, p0 = before
+    delta = [a - (c0[j] if j < len(c0) else 0) for j, a in enumerate(counts)]
+    edges = metrics.default_registry().get("oryx_coalescer_batch_size").buckets
+    top = max((j for j, d in enumerate(delta) if d), default=None)
+    calls = n - n0
+    return {"device_calls": calls,
+            "mean_batch": (total - t0) / calls if calls else None,
+            "max_batch_le": (None if top is None else
+                             edges[top] if top < len(edges) else float("inf")),
+            "pad_waste_rows": pad - p0}
+
+
+LAYER_THREADS = ("OryxServingLayer", "oryx-serving-exec", "OryxServingBatchWarmer")
+
+
+def layer_threads(before) -> list:
+    """Names of the serving layer threads alive in this process that were
+    not in ``before``."""
+    return [t.name for t in threading.enumerate()
+            if t not in before and t.is_alive() and t.name.startswith(LAYER_THREADS)]
+
+
+def applied_messages(layer) -> int:
+    """Update-topic messages the layer's manager has applied: its consumer
+    asks for the next message only after applying the last, so while it
+    waits all it has read are applied."""
+    metered = layer._metered_updates
+    if metered is None:
+        return 0
+    return metered._consumed if metered._waiting else metered._consumed - 1
+
+
+def start_layer(conf, what: str, device=None):
+    """A ``ServingLayer`` on ``device`` (None: the card) on a free port,
+    started; returns it, its port, the ``perf_counter`` time of the start
+    and the threads alive before it."""
+    port = ioutils.choose_free_port()
+    layer = ServingLayer(conf.with_values({"oryx.serving.api.port": port}),
+                         device=device)
+    before = set(threading.enumerate())
+    t0 = time.perf_counter()
+    layer.start()
+    check(layer.device == resolve(device), f"{what}: the layer is on {layer.device}")
+    return layer, port, t0, before
+
+
+def close_layer(layer, port: int, what: str, before) -> dict:
+    """Close ``layer``: none of its threads (started since ``before``) may
+    be left, and its port must be free."""
+    t0 = time.perf_counter()
+    layer.close()
+    close_s = time.perf_counter() - t0
+    left = layer_threads(before)
+    check(not left, f"{what}: threads left after close(): {left}")
+    with socket.socket() as probe:
+        probe.bind(("0.0.0.0", port))
+    check(layer._failure is None and layer.consumer_restarts == 0,
+          f"{what}: consumer failure {layer._failure!r}, "
+          f"{layer.consumer_restarts} restarts")
+    return {"close_s": close_s, "threads_left": left}
+
+
+def check_routes_once(client, model, http_model, generation: str, rng) -> list:
+    """Every ALS read route but ``/recommend`` once, against the in-process
+    model's direct calls (``/recommend`` itself is checked per user). Both
+    models' YᵀY solvers are brought up to their Y first (``SolverCache``
+    hands out the previous solver while a recompute runs)."""
+    settle_solvers([model.yty_cache, http_model.yty_cache])
+    users = model.all_user_ids()
+    u1, u2 = (users[j] for j in rng.choice(len(users), 2, replace=False))
+    known1 = sorted(model.get_known_items(u1))
+    items = model.all_item_ids()
+    i1, i2, i3 = (items[j] for j in rng.choice(len(items), 3, replace=False))
+    g = generation
+    checked = []
+
+    def route(path):
+        checked.append(path)
+        return client.json(path, g)
+
+    mean = np.mean([model.get_user_vector(u1), model.get_user_vector(u2)], axis=0)
+    known = model.get_known_items(u1) | model.get_known_items(u2)
+    check_same_top_n(route(f"/recommendToMany/{u1}/{u2}"),
+                     model.top_n(mean, 10, excluded=known), "/recommendToMany")
+    vec = model.build_temporary_user_vector([(i1, 2.0), (i2, 1.0)])
+    check_same_top_n(route(f"/recommendToAnonymous/{i1}=2/{i2}"),
+                     model.top_n(vec, 10, excluded={i1, i2}), "/recommendToAnonymous")
+    qs = np.stack([model.get_item_vector(i1), model.get_item_vector(i2)])
+    check_same_top_n(route(f"/similarity/{i1}/{i2}"),
+                     model.top_n_cosine(qs, 10, 0, lambda i: i not in {i1, i2}),
+                     "/similarity")
+    uv = model.get_user_vector(u1)
+    check_same_top_n(route(f"/estimate/{u1}/{i1}/{i2}/{i3}"),
+                     list(zip((i1, i2, i3), model.dot_with_items(uv, [i1, i2, i3]))),
+                     "/estimate")
+    known_vecs = model.get_known_item_vectors_for_user(u1)
+    yi = model.get_item_vector(known1[0])
+    sims = vectormath.cosine_similarities(
+        np.stack([v for _, v in known_vecs]), yi, float(np.linalg.norm(yi)),
+        device=model.device).tolist()
+    want = sorted(zip((i for i, _ in known_vecs), sims), key=lambda t: -t[1])[:10]
+    check_same_top_n(route(f"/because/{u1}/{known1[0]}"), want, "/because")
+    check(route(f"/knownItems/{u1}") == known1, "/knownItems differ")
+    counts = sorted(model.item_counts().items(), key=lambda t: -t[1])[:10]
+    check_same_top_n(route("/mostPopularItems"), counts, "/mostPopularItems",
+                     field="count")
+    check(set(route("/user/allIDs")) == set(users), "/user/allIDs differ")
+    body = client.json(f"/recommend/{u2}?howMany=10", g)
+    status, head, data = client.request("GET", f"/recommend/{u2}?howMany=10",
+                                        headers={"Accept": "text/csv"})
+    check(status == 200 and head.get("content-type", "").startswith("text/csv")
+          and head.get("x-oryx-model-generation") == g, "/recommend as CSV")
+    rows = [ln.split(",") for ln in data.decode().splitlines()]
+    check([[e["id"], e["value"]] for e in body] == [[i, float(v)] for i, v in rows],
+          "/recommend as CSV differs from its JSON")
+    checked.append("recommend (CSV)")
+    return checked
+
+
+def check_recommend(client, model, users, generation: str, label: str) -> int:
+    """``/recommend/{u}?howMany=10`` for ``users``, with and without
+    ``considerKnownItems``, against the in-process model's ``top_n`` with
+    the same known items excluded. Returns the requests made."""
+    for u in users:
+        uv = model.get_user_vector(u)
+        for consider in (False, True):
+            path = f"/recommend/{u}?howMany=10" + ("&considerKnownItems=true"
+                                                  if consider else "")
+            want = model.top_n(uv, 10, excluded=None if consider
+                               else model.get_known_items(u))
+            check_same_top_n(client.json(path, generation), want, f"{label} {path}")
+    return 2 * len(users)
+
+
+def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
+    """The serving layer's HTTP app on the loop's update topic (see the
+    module docstring): replay, answers against the loop's in-process
+    serving model, writes through the loop, load at four concurrencies,
+    probes. No kernel may launch. ``device``: the layer's (None: the card;
+    the tests run it on the CPU)."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    model = loop.serving.get_model()
+    stamp = lineage.parse_stamp(loop.broker.read(loop.update_topic, 0, 1)[0].headers)
+    check(stamp is not None, "serving_http: the first update is not a stamped MODEL")
+    generation = stamp["generation"]
+    total = loop.update_size()
+    conf = loop.conf.with_values({
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        "oryx.serving.api.read-only": False,
+    })
+    out: dict = {"update_messages": total, "generation": generation}
+    # the client process starts first: its imports overlap the replay
+    with mp.get_context("spawn").Pool(1) as pool:
+        layer, port, t_start, threads = start_layer(conf, "serving_http", device)
+        client = HttpClient(port)
+        try:
+            t_ready = wait_until(lambda: client.request("GET", "/ready")[0] == 200,
+                                 300, "serving_http: /ready", layers=loop.layers,
+                                 poll=0.01)
+            t_current = wait_until(lambda: applied_messages(layer) >= total, 300,
+                                   "serving_http: the replay", layers=loop.layers,
+                                   poll=0.01)
+            out["replay_to_ready_s"] = t_ready - t_start
+            out["replay_to_current_s"] = t_current - t_start
+            http_model = layer.manager.get_model()
+            out["y_device"] = str(http_model.y_snapshot().mat.device)
+            check(http_model.y_snapshot().mat.device.type == layer.device.type,
+                  f"serving_http: the layer's Y is on {out['y_device']}")
+            check(http_model.get_fraction_loaded() == 1.0,
+                  "serving_http: the replayed model is not fully loaded")
+
+            # answers against the loop's in-process model
+            users = model.all_user_ids()
+            sample = [users[j] for j in rng.choice(len(users), HTTP_USERS, replace=False)]
+            t0 = time.perf_counter()
+            n = check_recommend(client, model, sample, generation, "serving_http")
+            out["recommend_checked"] = {"users": len(sample), "requests": n,
+                                        "seconds": time.perf_counter() - t0}
+            out["routes_checked"] = check_routes_once(client, model, http_model,
+                                                      generation, rng)
+
+            # writes through the loop: /ingest → input topic → speed → both managers
+            items = model.all_item_ids()
+            ts0 = int(time.time() * 1000)
+            ingest = [f"{users[a]},{items[b]},1,{ts0 + j}" for j, (a, b) in enumerate(zip(
+                rng.integers(0, len(users), HTTP_INGEST_LINES),
+                rng.integers(0, len(items), HTTP_INGEST_LINES)))]
+            input_start = loop.broker.size(loop.input_topic)
+            since = len(loop.watch.commits)
+            t_first = time.perf_counter()
+            for j in range(0, len(ingest), 100):
+                status, _, data = client.request(
+                    "POST", "/ingest", body="\n".join(ingest[j:j + 100]).encode(),
+                    headers={"Content-Type": "text/csv"})
+                check(status == 200,
+                      f"serving_http: POST /ingest: {status} {data[:200]!r}")
+            t_last = time.perf_counter()
+            input_end = input_start + len(ingest)
+            landed = [km.message for km in loop.broker.read(loop.input_topic, input_start,
+                                                            2 * len(ingest))]
+            check(landed == ingest, "serving_http: the ingested lines are not the input "
+                  f"topic's ({len(landed)} landed)")
+            commit = loop.wait_commit(loop.speed_group, input_end, since, 120,
+                                      "serving_http: the speed generation of /ingest")
+            update_end = loop.update_size()
+            check(update_end > total, "serving_http: /ingest published no UP")
+            t_served = wait_until(lambda: applied_messages(layer) >= update_end, 120,
+                                  "serving_http: the layer applies the ingest UPs",
+                                  layers=loop.layers, poll=0.001)
+            loop.wait_applied(loop.served, update_end, 120,
+                              "serving_http: the loop's manager applies the ingest UPs")
+            touched = sorted({ln.split(",")[0] for ln in ingest})
+            touched = [touched[j] for j in rng.choice(len(touched), HTTP_TOUCHED,
+                                                      replace=False)]
+            check_recommend(client, model, touched, generation, "serving_http touched")
+            out["ingest"] = {"lines": len(ingest), "requests": len(ingest) // 100,
+                             "post_s": t_last - t_first, "ups": update_end - total,
+                             "speed_commit_after_last_post_s": commit["t0"] - t_last,
+                             "ingest_to_served_s": t_served - t_last,
+                             "touched_checked": len(touched)}
+            out["ingest_to_served_s"] = t_served - t_last
+
+            # load at four concurrencies from a client process
+            paths = [f"/recommend/{u}?howMany=10" for u in sample]
+            levels = []
+            for concurrency, n_requests in HTTP_LOAD:
+                before = coalescer_counts()
+                level = pool.apply(http_load, (port, paths, concurrency, n_requests))
+                level.update(coalescer_since(before))
+                check(level["errors"] == 0 and level["requests"] == n_requests,
+                      f"serving_http: load at {concurrency}: {level}")
+                if concurrency >= 64:
+                    check(level["mean_batch"] is not None and level["mean_batch"] > 1,
+                          f"serving_http: load at {concurrency} did not batch: {level}")
+                levels.append(level)
+            out["load"] = levels
+
+            # probes
+            status, _, data = client.request("GET", "/readyz")
+            readyz = json.loads(data)
+            check(status == 200 and readyz["model"] == "loaded",
+                  f"serving_http: /readyz {status} {readyz}")
+            _, _, data = client.request("GET", "/metrics")
+            routes = re.findall(r'oryx_serving_requests_total\{route="([^"]+)"',
+                                data.decode())
+            check({"/recommend/{userID}", "/ingest", "/because/{userID}/{itemID}"}
+                  <= set(routes), f"serving_http: /metrics routes {sorted(set(routes))}")
+            for method, path in (("GET", "/nope"), ("POST", "/debug/profile"),
+                                 ("GET", "/debug/profile")):
+                status = client.request(method, path)[0]
+                check(status == 404, f"serving_http: {method} {path}: {status}")
+            out["readyz"] = {k: readyz[k]
+                             for k in ("status", "model", "update_lag_messages")}
+        finally:
+            client.close()
+            closed = close_layer(layer, port, "serving_http", threads)
+    out.update(closed)
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"serving_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def kmeans_http(conf, text: str, ups: list, points: np.ndarray, serving, rng,
+                device=None) -> dict:
+    """A small k-means ``ServingLayer`` on the card, on an update topic of
+    its own holding the generation's ``MODEL`` and the speed ``UP``s:
+    ``/assign`` and ``/distanceToNearest`` against ``nearest_cluster`` of
+    the in-process manager that applied the same messages, and ``/add``
+    onto its input topic."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    broker_url = "memory:kmeans-serving"
+    conf = conf.with_values({
+        "oryx.input-topic.broker": broker_url,
+        "oryx.update-topic.broker": broker_url,
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.kmeans.serving.KMeansServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.kmeans",
+    })
+    tp.maybe_create_topics(conf, "input-topic", "update-topic")
+    broker = tp.get_broker(broker_url)
+    update_topic = conf.get_string("oryx.update-topic.message.topic")
+    input_topic = conf.get_string("oryx.input-topic.message.topic")
+    producer = tp.TopicProducerImpl(broker_url, update_topic)
+    producer.send("MODEL", text)
+    for u in ups:
+        producer.send("UP", u)
+    producer.close()
+    total = broker.size(update_topic)
+    layer, port, t_start, threads = start_layer(conf, "kmeans serving_http", device)
+    client = HttpClient(port)
+    out: dict = {"update_messages": total}
+    try:
+        wait_until(lambda: applied_messages(layer) >= total, 120,
+                   "kmeans serving_http: the replay", poll=0.005)
+        out["replay_s"] = time.perf_counter() - t_start
+        queries = points[rng.choice(len(points), HTTP_KMEANS_QUERIES, replace=False)]
+        model = serving.get_model()
+        t0 = time.perf_counter()
+        for q in queries:
+            datum = ",".join(repr(float(v)) for v in q)
+            want_id, want_d = model.nearest_cluster(np.asarray(
+                [float(v) for v in datum.split(",")]))
+            status, _, data = client.request("GET", f"/assign/{datum}")
+            check(status == 200 and int(data) == want_id,
+                  f"kmeans serving_http: /assign {status} {data!r}, expected {want_id}")
+            status, _, data = client.request("GET", f"/distanceToNearest/{datum}")
+            check(status == 200 and float(data) == want_d,
+                  f"kmeans serving_http: /distanceToNearest {status} {data!r}, "
+                  f"expected {want_d}")
+        out["queries"] = {"n": len(queries), "requests": 2 * len(queries),
+                          "seconds": time.perf_counter() - t0}
+        adds = [",".join(f"{v:.4f}" for v in p) for p in queries[:HTTP_KMEANS_ADDS]]
+        start = broker.size(input_topic)
+        status, _, data = client.request("POST", "/add",
+                                         body="\n".join(adds).encode())
+        check(status == 204, f"kmeans serving_http: POST /add {status} {data!r}")
+        landed = [km.message for km in broker.read(input_topic, start, 2 * len(adds))]
+        check(landed == adds, f"kmeans serving_http: {len(landed)} of {len(adds)} "
+              "/add lines on the input topic")
+        out["added"] = len(landed)
+    finally:
+        client.close()
+        closed = close_layer(layer, port, "kmeans serving_http", threads)
+    out.update(closed)
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"kmeans serving_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2202,7 +2723,8 @@ def kmeans_update_phase(dev, rng) -> dict:
     check(sum(c.count for c in served) == KM_LINES + KM_MICROBATCH,
           "kmeans speed: counts do not add up")
     generation = kmeans_generation(conf, train, runs * (iterations + 1))
-    return {"lines": KM_LINES, "features": KM_D, "k": k, "runs": runs,
+    http = kmeans_http(conf, text, ups, points, serving, rng)
+    return {"serving_http": http, "lines": KM_LINES, "features": KM_D, "k": k, "runs": runs,
             "iterations": iterations, "launches": launches,
             "shape_launches": by_shape,
             "scores": scores, "sse_vs_sweep_cost_rel": sse_rel,
@@ -2405,12 +2927,15 @@ def main() -> int:
                                                       "100k x 64")
     emit("kmeans_kernel", **record)
     km_update = kmeans_update_phase(dev, rng)
+    km_http = km_update.pop("serving_http")
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
     # last: mostly host work, and nothing after it is profiled
     loop = lambda_loop_phase(lines, rng)
+    serving_http = loop.pop("serving_http")
     emit("lambda_loop", **loop)
+    emit("serving_http", **serving_http, kmeans=km_http)
     generation, speed = loop["batch"], loop["speed"]
 
     # each entry's launches at its shape, from the run of the path that
@@ -2444,6 +2969,9 @@ def main() -> int:
         "kmeans_generation": {"kmeans_assign_accumulate":
                               km_update["generation"]["launches"]},
         "lambda_loop.speed": speed["launches"],
+        # the HTTP app's path (the ALS and the k-means layer) launches none
+        "serving_http": {w: serving_http["launches"][w] + km_http["launches"][w]
+                         for w in serving_http["launches"]},
     }
     # each later path's launches held against the plain versions, one
     # record per shape the path launched at

@@ -2,10 +2,9 @@
 events plus a one-file JSON postmortem bundle.
 
 A copy of the JAX package's ``oryx_tpu/common/blackbox.py`` (host code, no
-JAX). The bundle leaves out the sections whose modules the port does not
-have yet: device/host memory (``profiling``), SLO status (``slo``) and the
-pre-incident series (``tsdb``); the transport and the retry machinery only
-need :func:`record_event`. Its versions name ``oryx_tpu_torch`` and torch.
+JAX). The bundle leaves out the device/host memory section, whose module
+(``profiling``) the port does not have yet. Its versions name
+``oryx_tpu_torch`` and torch.
 
 The framework survives faults (retries, quarantine, breaker, supervised
 restarts, torn-tail recovery), but a counter alone does not explain one —
@@ -242,8 +241,25 @@ def bundle(reason: str = "on-demand", history: "dict | None" = None) -> dict:
         }
     except Exception as e:  # noqa: BLE001
         out["traces_error"] = str(e)
-    if history is not None:
-        out["history"] = history
+    try:
+        from oryx_tpu_torch.common import slo
+
+        out["slo"] = slo.status()
+    except Exception as e:  # noqa: BLE001
+        out["slo_error"] = str(e)
+    # pre-incident time series (common/tsdb.py): minutes of context for the
+    # curated signals instead of one snapshot. ``history`` carries a window
+    # captured at TRIGGER time (deferred edge dumps); live pulls read the
+    # rings now. Omitted entirely while the tsdb engine is disabled.
+    try:
+        if history is None:
+            from oryx_tpu_torch.common import tsdb
+
+            history = tsdb.incident_window()
+        if history is not None:
+            out["history"] = history
+    except Exception as e:  # noqa: BLE001
+        out["history_error"] = str(e)
     if _STATE.config_props is not None:
         out["config"] = _STATE.config_props
     return out
@@ -296,12 +312,19 @@ def dump(reason: str, force: bool = False,
 def trigger_dump(reason: str) -> None:
     """Ask the background dumper for a dump (non-blocking; no-op without a
     dump-dir). Edge sites call this from under their own locks, so the
-    file I/O must happen on the dumper thread, never inline. (The
-    reference captures a tsdb series window here; the port has no tsdb
-    yet, so the pending window is always empty.)"""
+    file I/O must happen on the dumper thread, never inline. The series
+    window is captured HERE, at trigger time — a dump deferred past the
+    rate window must still carry the pre-incident context, not a snapshot
+    diluted by the wait (tsdb.incident_window takes only leaf ring locks,
+    so it is as safe under an edge site's lock as the flag-set itself)."""
     if not _STATE.dump_dir:
         return
-    _STATE._pending_history = None
+    try:
+        from oryx_tpu_torch.common import tsdb
+
+        _STATE._pending_history = tsdb.incident_window()
+    except Exception:  # noqa: BLE001 — context is decoration, never a veto
+        _STATE._pending_history = None
     _STATE._pending_reason = reason
     _STATE._wake.set()
 

@@ -1,7 +1,9 @@
 """Dynamic class loading for config-driven extension points.
 
 A copy of the JAX package's ``oryx_tpu/common/classutils.py`` (host code, no
-JAX), held equal to it by ``tests/test_torch_lambda.py``.
+JAX), held equal to it by ``tests/test_torch_lambda.py``, plus
+:func:`load_instance_on`, which builds a class whose constructor takes a
+``device`` keyword on the layer's device.
 
 Equivalent of the reference's ClassUtils (framework/oryx-common/.../lang/
 ClassUtils.java:36-101): user classes named in config (``oryx.batch.update-class``,
@@ -13,6 +15,7 @@ ClassUtils.java:36-101): user classes named in config (``oryx.batch.update-class
 from __future__ import annotations
 
 import importlib
+import inspect
 from typing import Any, Type
 
 
@@ -46,8 +49,6 @@ def load_instance_of(name: str, expected_type: Type | None = None, *args: Any) -
     back to no-arg (ClassUtils.loadInstanceOf). Constructor selection is by
     signature — errors raised *inside* a matching __init__ propagate, like the
     reference's reflective constructor lookup."""
-    import inspect
-
     cls = load_class(name)
     if expected_type is not None and not issubclass(cls, expected_type):
         raise TypeError(f"{name} is not a {expected_type.__name__}")
@@ -61,3 +62,20 @@ def load_instance_of(name: str, expected_type: Type | None = None, *args: Any) -
         else:
             return cls(*args)
     return cls()
+
+
+def load_instance_on(name: str, expected_type: "Type | None", config, device) -> Any:
+    """``name`` built from ``(config)`` as :func:`load_instance_of` builds
+    it; a class whose constructor takes a ``device`` keyword is built as
+    ``cls(config, device=device)`` (the port's updates and managers hold
+    their tensors on it)."""
+    cls = load_class(name)
+    try:
+        takes_device = "device" in inspect.signature(cls).parameters
+    except (TypeError, ValueError):
+        takes_device = False
+    if not takes_device:
+        return load_instance_of(name, expected_type, config)
+    if expected_type is not None and not issubclass(cls, expected_type):
+        raise TypeError(f"{name} is not a {expected_type.__name__}")
+    return cls(config, device=device)

@@ -11,9 +11,9 @@ stored offsets keyed by ``oryx.id`` (buildInputDStream:208-211).
 Two changes from the JAX package:
 
   * ``__init__`` configures only the hooks the port has (metrics, spans,
-    resilience, faults, blackbox, the file broker's fsync policy). The
-    reference's compile cache, profiling, SLO, tsdb, netbroker, factor-arena
-    and sanitizer hooks are not ported.
+    resilience, faults, blackbox, the SLO engine, the tsdb sampler, the
+    file broker's fsync policy). The reference's compile cache, profiling,
+    netbroker, factor-arena and sanitizer hooks are not ported.
   * The context's device is resolved by ``start()`` (through
     :meth:`AbstractLayer.load_manager_instance`), before any thread is
     spawned: a layer configured for the card on a host without one raises
@@ -24,7 +24,6 @@ Two changes from the JAX package:
 
 from __future__ import annotations
 
-import inspect
 import threading
 import time
 from typing import Callable, Sequence
@@ -35,7 +34,9 @@ from oryx_tpu_torch.common import classutils
 from oryx_tpu_torch.common import faults
 from oryx_tpu_torch.common import metrics as metrics_mod
 from oryx_tpu_torch.common import resilience
+from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
+from oryx_tpu_torch.common import tsdb
 from oryx_tpu_torch.common.tracing import StepTracer
 from oryx_tpu_torch.parallel.mesh import ComputeContext
 from oryx_tpu_torch.transport import topic as tp
@@ -73,9 +74,15 @@ class AbstractLayer:
         spans.configure(config)
         resilience.configure(config)
         faults.configure(config)
-        # flight recorder: batch/speed tiers record the same operational
-        # events (quarantines, retry exhaustion) as serving replicas
+        # flight recorder + SLO engine: batch/speed tiers record the same
+        # operational events (quarantines, retry exhaustion) and evaluate
+        # the same oryx.slo.* objectives as serving replicas
         blackbox.configure(config)
+        slo.configure(config)
+        # time-series sampler (oryx.tsdb.*): batch/speed tiers record the
+        # same curated signal history — their blackbox dumps carry the
+        # pre-incident window exactly like a serving replica's
+        tsdb.configure(config)
         tp.configure(config)  # file-broker fsync durability policy
         self.tracer = StepTracer(config, tier)
         self.id = config.get_string("oryx.id", None)
@@ -380,16 +387,7 @@ class AbstractLayer:
         if not name:
             raise ValueError(f"no class configured at {class_key}")
         device = self.get_context().device
-        cls = classutils.load_class(name)
-        try:
-            takes_device = "device" in inspect.signature(cls).parameters
-        except (TypeError, ValueError):
-            takes_device = False
-        if takes_device:
-            if expected_type is not None and not issubclass(cls, expected_type):
-                raise TypeError(f"{name} is not a {expected_type.__name__}")
-            return cls(self.config, device=device)
-        return classutils.load_instance_of(name, expected_type, self.config)
+        return classutils.load_instance_on(name, expected_type, self.config, device)
 
     def await_termination(self, timeout: float | None = None) -> None:
         """Block until stop; a layer failure is raised exactly ONCE — callers

@@ -361,6 +361,25 @@ class ALSServingModel(ServingModel):
             out.append(got)
         return out
 
+    def warm_bucket(self, batch_size: int, how_many: int = 10) -> None:
+        """One bucket of the serving layer's warmup ladder
+        (``serving/app.py`` ``_BatchWarmer``): a zero batch of
+        ``batch_size`` queries through ``top_n_batch``, once without
+        exclusions and once with (the default ``/recommend`` path always
+        sends known-item exclusions; an id no snapshot holds pads to an
+        all-(-1) mask of the floored width). On the card that takes the
+        caching allocator's first allocations and cuBLAS's kernel choice for
+        this shape off the request path. Raises when the model has no items
+        yet (the warmer retries later)."""
+        if self.y_snapshot().n == 0:
+            raise ValueError("no item factors to warm against yet")
+        zeros = np.zeros((batch_size, self.features), dtype=np.float32)
+        self.top_n_batch(zeros, how_many)
+        self.top_n_batch(
+            zeros, how_many,
+            excluded=[("__warm__",)] + [None] * (batch_size - 1),
+        )
+
     def top_n_cosine(
         self,
         query_vecs,

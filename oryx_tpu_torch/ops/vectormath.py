@@ -33,6 +33,18 @@ def cosine_similarity(x, y, norm_y=None, device=None) -> torch.Tensor:
     return torch.dot(x, y) / (torch.linalg.vector_norm(x) * ny)
 
 
+def cosine_similarities(rows, y, norm_y=None, device=None) -> np.ndarray:
+    """Cosine similarity of every row of ``rows`` against ``y`` in one
+    product on ``device``, returned as a host float32 array (the batched
+    form of :func:`cosine_similarity` for the similarity and because
+    endpoints: one product and one transfer for the whole list)."""
+    rows = as_tensor(np.asarray(rows, dtype=np.float32), device)
+    y = as_tensor(np.asarray(y, dtype=np.float32), device)
+    ny = torch.linalg.vector_norm(y) if norm_y is None else norm_y
+    sims = (rows @ y) / (torch.linalg.vector_norm(rows, dim=1) * ny)
+    return sims.cpu().numpy()
+
+
 def transpose_times_self(rows, device=None) -> "torch.Tensor | None":
     """Gramian XᵀX of a collection/array of row vectors
     (VectorMath.transposeTimesSelf); None for empty input, as the reference

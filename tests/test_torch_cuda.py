@@ -693,3 +693,66 @@ def test_lambda_loop_on_the_card_emits_the_cpu_loop_updates(cuda_device, tmp_pat
         assert [i for i, _ in g] == [i for i, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_serving_layer_on_the_card_answers_as_on_the_cpu(cuda_device, tmp_path):
+    """One ``MODEL`` + ``UP`` stream (seeded factors, five known items per
+    user) into a serving layer on the card and one on the CPU, both on the
+    same ``memory:`` update topic; 200 seeded ``/recommend`` requests to
+    each through stdlib ``http.client``: ids equal (a near tie may order
+    its ids either way) and scores within 1e-5 relative."""
+    from chip_smoke import HttpClient, applied_messages, check_same_top_n, wait_until
+    from oryx_tpu_torch.common import config as cfg
+    from oryx_tpu_torch.common import ioutils
+    from oryx_tpu_torch.models.als import pmml_codec
+    from oryx_tpu_torch.pmml import pmmlutils
+    from oryx_tpu_torch.serving.app import ServingLayer
+    from oryx_tpu_torch.transport import topic as tp
+
+    rng = np.random.default_rng(SEED)
+    n_users, n_items, k = 2_000, 3_000, 16
+    users = [f"u{j}" for j in range(n_users)]
+    items = [f"i{j}" for j in range(n_items)]
+    x = rng.standard_normal((n_users, k)).astype(np.float32)
+    y = rng.standard_normal((n_items, k)).astype(np.float32)
+    pmml = pmml_codec.model_to_pmml(x, y, users, items, k, 0.1, 1.0, True,
+                                    False, 1e-5, tmp_path)
+    tp.reset_memory_brokers()
+    conf = cfg.overlay_on({
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+    }, cfg.get_default())
+    tp.maybe_create_topics(conf, "input-topic", "update-topic")
+    prod = tp.TopicProducerImpl("memory:", "OryxUpdate")
+    prod.send("MODEL", pmmlutils.to_string(pmml))
+    for id_, vec in pmml_codec.read_features(tmp_path / "Y"):
+        prod.send("UP", json.dumps(["Y", id_, [float(v) for v in vec]]))
+    for id_, vec in pmml_codec.read_features(tmp_path / "X"):
+        known = [items[j] for j in rng.choice(n_items, 5, replace=False)]
+        prod.send("UP", json.dumps(["X", id_, [float(v) for v in vec], known]))
+    total = tp.get_broker("memory:").size("OryxUpdate")
+    layers = []
+    try:
+        for device in (None, "cpu"):
+            port = ioutils.choose_free_port()
+            layer = ServingLayer(conf.with_values({"oryx.serving.api.port": port}),
+                                 device=device)
+            layers.append((layer, HttpClient(port)))
+            layer.start()
+        for layer, _ in layers:
+            wait_until(lambda layer=layer: applied_messages(layer) >= total, 120,
+                       "the layer's replay")
+        card, cpu = (layer.manager.get_model() for layer, _ in layers)
+        assert card.y_snapshot().mat.device.type == "cuda"
+        assert cpu.y_snapshot().mat.device.type == "cpu"
+        for u in rng.choice(users, 200, replace=False):
+            path = f"/recommend/{u}?howMany=10"
+            want = [(e["id"], e["value"]) for e in layers[1][1].json(path)]
+            check_same_top_n(layers[0][1].json(path), want, path)
+    finally:
+        for layer, client in layers:
+            client.close()
+            layer.close()
+        tp.reset_memory_brokers()

@@ -2,7 +2,9 @@
 
 * ``oryx_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the
   reference package ``oryx_tpu`` (not even its numpy-only modules): the port
-  runs on a machine with no JAX and copies what it needs.
+  runs on a machine with no JAX and copies what it needs. Nor ``httpx``: the
+  serving app is on aiohttp, which the card's machine has, and its clients
+  there speak stdlib ``http.client``.
 * ``device=None`` means the CUDA card: without one, an entry point raises
   rather than silently running on the CPU.
 """
@@ -40,7 +42,7 @@ torch.set_num_threads(1)
 
 PKG = os.path.dirname(os.path.abspath(oryx_tpu_torch.__file__))
 REPO = os.path.dirname(PKG)
-_FORBIDDEN = ("jax", "jaxlib", "oryx_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "oryx_tpu", "httpx")
 
 
 def _port_sources():
@@ -78,6 +80,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "common/tracing.py", "transport/topic.py", "parallel/mesh.py",
             "lambda_rt/layer.py", "lambda_rt/batch.py",
             "lambda_rt/speed.py"} <= scanned
+    assert {"serving/app.py", "serving/batcher.py", "serving/resource.py",
+            "serving/console.py", "serving/resources/common.py",
+            "serving/resources/als.py", "serving/resources/kmeans.py",
+            "common/slo.py", "common/tsdb.py", "common/compilecache.py",
+            "common/lineage.py", "api/serving.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -89,10 +96,11 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_the_scan_sees_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom oryx_tpu.common import rand\n"
-                 "import oryx_tpu_torch\nimport jax.numpy as jnp\n")
+                 "import oryx_tpu_torch\nimport jax.numpy as jnp\n"
+                 "import aiohttp\nimport httpx\n")
     mods = list(_imported_modules(str(p)))
     assert [m for m in mods if m.split(".")[0] in _FORBIDDEN] == [
-        "oryx_tpu.common", "jax.numpy"]
+        "oryx_tpu.common", "jax.numpy", "httpx"]
 
 
 def _entry_points():
@@ -215,3 +223,63 @@ def test_layers_need_the_card_unless_configured_for_the_cpu(tier, tmp_path):
                 f'tier="{tier}"', 0.0) == quarantined
     finally:
         tp.reset_memory_brokers()
+
+
+def _serving_config(port, extra=None):
+    return config.overlay_on({
+        "oryx.serving.api.port": port,
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        **(extra or {}),
+    }, config.get_default())
+
+
+def test_serving_layer_needs_the_card_unless_asked_for_the_cpu():
+    """``ServingLayer(config)`` means the card: on a host without one
+    ``start()`` raises before it creates a topic, a thread, a producer or a
+    socket. ``device="cpu"`` serves from the CPU."""
+    import socket
+    import threading
+    import urllib.request
+
+    from oryx_tpu_torch.common import ioutils
+    from oryx_tpu_torch.serving.app import ServingLayer
+    from oryx_tpu_torch.transport import topic as tp
+
+    tp.reset_memory_brokers()
+    try:
+        port = ioutils.choose_free_port()
+        if not torch.cuda.is_available():
+            before = set(threading.enumerate())
+            layer = ServingLayer(_serving_config(port))
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                layer.start()
+            assert not [t for t in set(threading.enumerate()) - before
+                        if t.is_alive()]
+            assert layer.manager is None
+            assert not tp.get_broker("memory:").topic_exists("OryxUpdate")
+            with socket.socket() as s:
+                s.bind(("0.0.0.0", port))  # the port was never bound
+        layer = ServingLayer(_serving_config(port), device="cpu")
+        layer.start()
+        try:
+            assert layer.device == torch.device("cpu")
+            assert layer.manager.device == torch.device("cpu")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/ready", timeout=10)
+            assert e.value.code == 503  # serving, with no model yet
+        finally:
+            layer.close()
+    finally:
+        tp.reset_memory_brokers()
+
+
+def test_serving_layer_refuses_a_rescorer_provider_at_construction():
+    """The rescorer is not ported: a configured provider raises when the
+    layer is built, not silently dropped at request time."""
+    from oryx_tpu_torch.serving.app import ServingLayer
+
+    conf = _serving_config(0, {"oryx.als.rescorer-provider-class": "x.Provider"})
+    with pytest.raises(NotImplementedError, match="rescorer"):
+        ServingLayer(conf, device="cpu")
