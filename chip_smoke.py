@@ -93,12 +93,13 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            run, twice (the second timed): point-iters/s, seeding and sweep
            seconds apart;
   lambda_loop
-           the ALS lambda loop through the port's runtime, last (mostly
-           host work), on ``memory:`` topics: a ``BatchLayer`` and a
+           the ALS lambda loop through the port's runtime, after the
+           k-means phases (mostly host work), on ``memory:`` topics: a ``BatchLayer`` and a
            ``SpeedLayer`` with ``platform`` null (the card), and an
            ``ALSServingModelManager`` on the card consuming the update
            topic from ``earliest`` on a thread of its own (what the serving
-           app does). Batch half: the same 1,000,000 lines are sent one by
+           app does). Batch half: the lines of the first 20,000 users
+           (``LOOP_USERS``, about 200,000, in order) are sent one by
            one through the input topic's producer (``produce_s``), offset 0
            is stored for the batch layer's group (a layer without a stored
            offset starts at its input's end), both layers start, and the
@@ -116,7 +117,7 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            the generation, one ``MODEL`` first (inline, under the
            transport's cap), a ``Y`` ``UP`` per item before any ``X``
            ``UP``, one ``X`` ``UP`` with its known items per user of the
-           training split; one data segment of 1,000,000 lines, the
+           training split; one data segment of all the lines, the
            group's stored offset at the input topic's end, the ``MODEL``'s
            lineage stamp carrying the context's offsets and watermark; the
            serving manager holding the whole stream (fraction 1.0), its
@@ -128,8 +129,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            layer's published ``UP``s, are the runtime's own, read from the
            metrics registry), and publish-to-servable seconds (the first ``MODEL`` on
            the update topic to the serving manager holding the stream).
-           Speed half: the held-out 10% (100,000 lines, the newest) as two
-           50,000-line microbatches through the input topic. Before each,
+           Speed half: the held-out 10% (about 20,000 lines, the newest)
+           as two 10,000-line microbatches through the input topic. Before each,
            both managers apply every message on the update topic (the speed
            layer hears its own ``UP``s), the speed manager's solver caches
            are brought current (``settle_solvers``: ``SolverCache`` hands
@@ -200,12 +201,53 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``UP``s: 1,000 ``/assign`` and ``/distanceToNearest`` against
            ``nearest_cluster``, 100 lines through ``POST /add`` onto its
            input topic) and is printed in this line as ``kmeans``.
+  deployment
+           the same ALS loop as a deployment, last: five processes started
+           through ``python -m oryx_tpu_torch.cli`` on one HOCON file (each
+           serving replica's adds its port), every topic ``tcp:`` on the
+           broker process — ``broker`` (its topic directory holding the
+           loop's lines, bulk-loaded into the input log before it starts,
+           offset 0 stored for the batch group), two ``serving`` replicas
+           on the card (ALS resources, read-write, replaying from
+           ``earliest``), ``speed`` and ``batch`` (the loop's config: one
+           candidate, k = 50, 3 iterations, on the card) — and in this
+           process an ``ALSServingModelManager`` on the card consuming the
+           update topic over ``tcp:``, timestamping each message as it
+           lands. The batch process is stopped (SIGTERM) once its first
+           generation committed the input's end. Printed: ``generation_s``
+           (batch process start to the ``MODEL`` landing) beside the batch
+           tier's own generation step seconds (its flight-recorder bundle,
+           written on SIGTERM), ``publish_to_servable_s`` per replica (the
+           ``MODEL`` landing to the replica having consumed every message,
+           read from its ``/metrics``), the ``UP`` publish's microseconds a
+           message from the landing times. Checks: the local model's
+           hold-out AUC > 0.75; 1,000 seeded users' ``/recommend`` on each
+           replica, with and without known items, against the local
+           manager's ``top_n`` by ``serving_http``'s rule, each answer
+           carrying the batch generation's id; ``/readyz`` 200 with the
+           model loaded and the build info on ``cuda``. Then probe lines
+           one at a time until the speed tier publishes (its model is
+           loaded), and a 2,500-line microbatch sent over ``tcp:``
+           (``produce_us``, ``ticks``, ``up_publish_us``,
+           ``append_to_servable_s`` per replica: the last send returning to
+           the replica having consumed the last ``UP`` of the lines), 100
+           touched users checked again on both replicas; the in-process
+           loop's figures from this run beside them; the broker's RPCs by
+           op with their mean server-side milliseconds, after the
+           generation and at the end (``broker_ops``, from its registry). Last, SIGTERM to each
+           tier and the broker: each must exit 0 within 30 s, and no tier's
+           bundle may count a quarantine, corrupt record, layer failure,
+           failed send or consumer restart. On a failure the last 40 lines
+           of each process's output are printed.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the loop's batch half
 ``lambda_loop.batch``, in the k-means generation, in the loop's speed
-half ``lambda_loop.speed`` and in the HTTP app's path ``serving_http``,
-where the last two must be all 0; ``path_checks``:
+half ``lambda_loop.speed``, in the HTTP app's path ``serving_http``,
+where the last two must be all 0, and in the deployment's batch process
+``deployment``, read from its bundle's ``oryx_device_calls_total`` and
+equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too;
+``path_checks``:
 for each generation, one record per kernel and shape it launched at, that
 launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Each kernels-line entry's ``launches``
@@ -221,6 +263,7 @@ at once.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import multiprocessing as mp
@@ -299,22 +342,29 @@ KM_BLOB_POINTS, KM_LINES, KM_MICROBATCH = 200_000, 100_000, 10_000
 # the k-means generation's timestamp (a recording producer, no layer)
 GENERATION_TIMESTAMP_MS = 1_760_000_000_000
 
-# the ALS lambda loop: one batch generation at the train phase's shape with
-# one candidate (λ = LAM), cut from a grid of two (λ 0.5 and 1) to keep it
-# near 90 s (two took 109 s of run_update on the H100, most of it the
-# part-file write and the evaluation's re-parse of each candidate); its
-# layers tick every BATCH_INTERVAL_S / SPEED_INTERVAL_S seconds: the speed
-# interval is long enough that a 50,000-line append (~0.5 s) sent just
-# after a tick lands in one generation
+# the ALS lambda loop and the deployment: one batch generation with one
+# candidate (λ = LAM), cut from a grid of two (λ 0.5 and 1: two took 109 s
+# of run_update on the H100, most of it the part-file write and the
+# evaluation's re-parse of each candidate), on the lines of the first
+# LOOP_USERS users (about 200,000, every item width kept): cut from all
+# 100,000 users because over tcp each published message is one RPC of
+# ~1.9 ms on the card's host, ~5 ms with four consumers (netbroker_rpc.py),
+# and a generation publishes one UP per user; the in-process loop runs the
+# same lines, so that both publish the same stream and launch the kernels
+# at the same shapes. The layers tick every BATCH_INTERVAL_S /
+# SPEED_INTERVAL_S seconds: the speed interval is long enough that a
+# microbatch's append (~0.1 s in process) sent just after a tick lands in
+# one generation
+LOOP_USERS = 20_000
 LOOP_BROKER = "memory:smoke"
 BATCH_INTERVAL_S, SPEED_INTERVAL_S = 1.0, 2.0
 
-# the speed tier: the generation's held-out 10% (100,000 lines, the
-# newest) as two microbatches of 50,000 (the size the reference's fold-in
-# notes are written for, oryx_tpu/models/als/speed.py:205-210); 256
-# sampled checks of each kind; at the flagship width, rounds of 10,000
-# changed and 1,000 new rows
-SPEED_MICROBATCH, SPEED_SAMPLES = 50_000, 256
+# the speed tier: the generation's held-out 10% (about 20,000 lines, the
+# newest) as two microbatches of 10,000 (cut with the loop's users from
+# two of 50,000, the size the reference's fold-in notes are written for,
+# oryx_tpu/models/als/speed.py:205-210); 256 sampled checks of each kind;
+# at the flagship width, rounds of 10,000 changed and 1,000 new rows
+SPEED_MICROBATCH, SPEED_SAMPLES = 10_000, 256
 FLAGSHIP_CHANGED, FLAGSHIP_NEW = 10_000, 1_000
 
 # the serving layer's HTTP app on the loop's update topic: 1,000 users'
@@ -327,6 +377,13 @@ HTTP_USERS, HTTP_INGEST_LINES, HTTP_TOUCHED = 1_000, 1_000, 100
 HTTP_LOAD = ((1, 400), (16, 1_500), (64, 3_000), (256, 3_000))
 HTTP_REL = 1e-5
 HTTP_KMEANS_QUERIES, HTTP_KMEANS_ADDS = 1_000, 100
+
+# the deployment: two serving replicas; a 2,500-line microbatch over tcp
+# (cut from the loop's 2 x 10,000: each send, and each of the ~2 UPs a
+# line makes, is one RPC: 6-9 ms each on the card's host with the tiers
+# consuming, so 5,000 lines took 100 s), after up to 20 probe lines sent
+# one by one until the speed tier publishes
+DEPLOY_REPLICAS, DEPLOY_MICROBATCH, DEPLOY_PROBE_LINES = 2, 2_500, 20
 
 
 class SmokeFailure(AssertionError):
@@ -1698,7 +1755,7 @@ class LambdaLoop:
 
 
 def loop_generation(loop: LambdaLoop, lines, rng) -> dict:
-    """The batch half (see the module docstring): the 1,000,000 lines
+    """The batch half (see the module docstring): the loop's lines
     through the input topic, one batch generation run by the layer, its
     stream read back from the update topic and checked, the serving
     manager's top-10 against the promoted part files, and the layer's own
@@ -1861,8 +1918,8 @@ def loop_generation(loop: LambdaLoop, lines, rng) -> dict:
 
 
 def loop_speed(loop: LambdaLoop, lines, rng) -> dict:
-    """The speed half (see the module docstring): the held-out 100,000
-    newest lines as two 50,000-line microbatches through the input topic,
+    """The speed half (see the module docstring): the held-out newest 10%
+    as microbatches of ``SPEED_MICROBATCH`` lines through the input topic,
     each appended while the pump is idle, after both managers applied every
     message on the update topic and the speed manager's solver caches were
     brought current; each microbatch's ``UP``s, read from the update topic,
@@ -1946,6 +2003,12 @@ def loop_speed(loop: LambdaLoop, lines, rng) -> dict:
     return out
 
 
+#: the counters that must not move in a loop's run, in any tier
+FAILURE_COUNTERS = ("oryx_quarantined_generations_total", "oryx_corrupt_records_total",
+                    "oryx_layer_failures_total", "oryx_topic_send_failures_total",
+                    "oryx_serving_consumer_restarts_total")
+
+
 def lambda_loop_phase(lines, rng) -> dict:
     """The ALS lambda loop through the runtime (see the module docstring):
     the batch half, then the speed half; any layer failure, quarantined
@@ -1964,9 +2027,7 @@ def lambda_loop_phase(lines, rng) -> dict:
         loop.await_layers()
     after = registry.snapshot()
     failures = {}
-    for name in ("oryx_quarantined_generations_total", "oryx_corrupt_records_total",
-                 "oryx_layer_failures_total", "oryx_topic_send_failures_total",
-                 "oryx_serving_consumer_restarts_total"):
+    for name in FAILURE_COUNTERS:
         for labels, value in after.get(name, {}).items():
             delta = value - before.get(name, {}).get(labels, 0.0)
             if delta:
@@ -2435,6 +2496,542 @@ def kmeans_http(conf, text: str, ups: list, points: np.ndarray, serving, rng,
     out["launches"] = dict(K.LAUNCHES)
     check(not any(out["launches"].values()),
           f"kmeans serving_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the deployment: the CLI's processes over tcp: ------------------------------
+
+
+REPO_ROOT = Path(__file__).resolve().parent
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text exposition as ``{name: {label string: value}}`` (the
+    registry snapshot's shape; histograms as their ``_bucket`` / ``_sum`` /
+    ``_count`` series)."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, _, value = line.rpartition(" ")
+        name, _, labels = series.partition("{")
+        out.setdefault(name, {})[labels[:-1] if labels else ""] = float(value)
+    return out
+
+
+def hocon(settings: dict) -> str:
+    """``settings`` (dotted keys) as HOCON lines, each value as JSON."""
+    return "".join(f"{key} = {json.dumps(value)}\n" for key, value in settings.items())
+
+
+def bulk_load(root: Path, topic: str, lines) -> None:
+    """Write ``lines`` (keyless) as the one-partition ``file:`` log of
+    ``topic`` under ``root`` in one write, framed as ``FileBroker.append``
+    frames each record (checked on the first lines): a million appends,
+    each opening and locking the log, would take about a minute."""
+    broker = tp.FileBroker(str(root))
+    broker.create_topic(topic)
+    probe = tp.FileBroker(str(root / ".probe"))
+    probe.create_topic(topic)
+    for ln in lines[:100]:
+        probe.append(topic, None, ln)
+    log = broker._log_path(topic, 0)
+
+    def frames(chunk):
+        return b"".join(tp.frame_record(json.dumps(
+            {"k": None, "m": ln}, separators=(",", ":")).encode("utf-8"))
+            for ln in chunk)
+
+    check(frames(lines[:100]) == probe._log_path(topic, 0).read_bytes(),
+          "deployment: the bulk load's frames are not FileBroker.append's")
+    with open(log, "ab") as f:
+        for j in range(0, len(lines), 100_000):
+            f.write(frames(lines[j:j + 100_000]))
+    check(broker.size(topic) == len(lines), "deployment: the bulk-loaded log's size")
+
+
+class _Process:
+    """One CLI process: its ``Popen``, its name as a tier (for
+    ``wait_until``'s ``layers``) and its output file."""
+
+    def __init__(self, name: str, argv: list, log: Path):
+        self.tier = name
+        self.log = log
+        self.done = False  # asked to stop: its exit is no failure
+        with open(log, "wb") as out:
+            self.popen = subprocess.Popen(
+                [sys.executable, "-m", "oryx_tpu_torch.cli", *argv],
+                stdout=out, stderr=subprocess.STDOUT, cwd=REPO_ROOT)
+
+    @property
+    def stopped(self) -> bool:
+        return not self.done and self.popen.poll() is not None
+
+    def tail(self, n: int = 40) -> str:
+        try:
+            return "\n".join(self.log.read_text(errors="replace").splitlines()[-n:])
+        except OSError as e:
+            return repr(e)
+
+
+class Deployment:
+    """The ALS lambda loop as a deployment runs it: a ``tcp:`` broker
+    process, a batch and a speed process and ``replicas`` serving processes,
+    each started through ``python -m oryx_tpu_torch.cli`` on one HOCON file
+    (each replica's adds its HTTP port), all topics on the broker. In this
+    process: a client of the broker, a producer on the input topic and an
+    ``ALSServingModelManager`` on ``local_device`` (None: the card)
+    consuming the update topic from ``earliest`` on its own thread, which
+    records when each message lands (``landed``) and when it is applied
+    (``applied``). The tests drive it on the CPU at a small size."""
+
+    def __init__(self, tmp: str, overrides: dict, replicas: int, local_device=None):
+        self.tmp = Path(tmp)
+        self.port = ioutils.choose_free_port()
+        self.url = f"tcp://127.0.0.1:{self.port}"
+        self.topics_dir = self.tmp / "topics"
+        self.dump_dir = self.tmp / "blackbox"
+        self.settings = {
+            "oryx.id": "deploy",
+            "oryx.input-topic.broker": self.url,
+            "oryx.update-topic.broker": self.url,
+            "oryx.batch.update-class": "oryx_tpu_torch.models.als.update.ALSUpdate",
+            "oryx.batch.storage.data-dir": f"{tmp}/data",
+            "oryx.batch.storage.model-dir": f"{tmp}/model",
+            "oryx.speed.model-manager-class":
+                "oryx_tpu_torch.models.als.speed.ALSSpeedModelManager",
+            "oryx.serving.model-manager-class":
+                "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+            "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+            "oryx.serving.api.read-only": False,
+            "oryx.serving.update-resume": "earliest",
+            "oryx.ml.eval.test-fraction": TEST_FRACTION,
+            "oryx.ml.eval.candidates": 1,
+            "oryx.als.hyperparams.lambda": LAM,
+            "oryx.als.hyperparams.features": FEATURES,
+            "oryx.als.hyperparams.alpha": ALPHA,
+            "oryx.als.iterations": ITERATIONS,
+            "oryx.batch.streaming.generation-interval-sec": BATCH_INTERVAL_S,
+            "oryx.speed.streaming.generation-interval-sec": SPEED_INTERVAL_S,
+            # every process tags its bundles with oryx.id and keeps the
+            # newest `keep` of that tag: keep them all
+            "oryx.blackbox.dump-dir": str(self.dump_dir),
+            "oryx.blackbox.keep": 1000,
+            **overrides,
+        }
+        self.conf = oryx_config.overlay_on(self.settings, oryx_config.get_default())
+        self.conf_path = self.tmp / "deployment.conf"
+        self.conf_path.write_text(hocon(self.settings))
+        self.replica_ports = [ioutils.choose_free_port() for _ in range(replicas)]
+        self.input_topic = self.conf.get_string("oryx.input-topic.message.topic")
+        self.update_topic = self.conf.get_string("oryx.update-topic.message.topic")
+        oryx_id = self.conf.get_string("oryx.id")
+        self.batch_group = f"OryxGroup-batch-{oryx_id}"
+        self.speed_group = f"OryxGroup-speed-{oryx_id}"
+        self.procs: dict = {}
+        self.local = ALSServingModelManager(self.conf, device=local_device)
+        self.applied = counting(self.local)
+        self.landed: list = []
+        self.local_error = None
+        self._updates = None
+        self._local_thread = None
+        self.broker = None
+        self.input = None
+
+    # -- processes ----------------------------------------------------------------
+    def spawn(self, name: str, *argv) -> _Process:
+        proc = _Process(name, list(argv), self.tmp / f"{name}.log")
+        self.procs[name] = proc
+        return proc
+
+    def start_broker(self, timeout: float = 120) -> float:
+        """The broker process on the topic directory, then ``topic-setup``;
+        returns the seconds until the broker answered a ``ping``."""
+        t0 = time.perf_counter()
+        self.spawn("broker", "broker", "--port", str(self.port), "--dir",
+                   str(self.topics_dir), "--host", "127.0.0.1")
+        self.broker = tp.get_broker(self.url)
+
+        def answers():
+            try:
+                return self.broker.ping()["dir"] == str(self.topics_dir)
+            except OSError:
+                return False
+
+        wait_until(answers, timeout, "deployment: the broker answers",
+                   layers=self.procs.values(), poll=0.05)
+        up_s = time.perf_counter() - t0
+        setup = subprocess.run(
+            [sys.executable, "-m", "oryx_tpu_torch.cli", "topic-setup", "--conf",
+             str(self.conf_path)], cwd=REPO_ROOT, capture_output=True, text=True,
+            timeout=timeout)
+        check(setup.returncode == 0 and "update: created topic" in setup.stdout,
+              f"deployment: topic-setup: {setup.returncode} {setup.stdout!r} "
+              f"{setup.stderr[-2000:]!r}")
+        self.input = tp.TopicProducerImpl(self.url, self.input_topic)
+        return up_s
+
+    def start_tier(self, tier: str) -> _Process:
+        return self.spawn(tier, tier, "--conf", str(self.conf_path))
+
+    def start_replicas(self) -> list:
+        out = []
+        for r, port in enumerate(self.replica_ports):
+            path = self.tmp / f"serving-{r}.conf"
+            path.write_text(hocon({**self.settings, "oryx.serving.api.port": port}))
+            out.append(self.spawn(f"serving-{r}", "serving", "--conf", str(path)))
+        return out
+
+    def start_local(self) -> None:
+        """This process's manager on the update topic, from ``earliest``."""
+        self._updates = tp.ConsumeDataIterator(self.broker, self.update_topic, "earliest")
+
+        def landing():
+            for km in self._updates:
+                self.landed.append((time.perf_counter(), km.key, (km.headers or {})
+                                    .get(lineage.WATERMARK_HEADER)))
+                yield km
+
+        def consume():
+            try:
+                self.local.consume(landing())
+            except Exception as e:  # noqa: BLE001 — failed by the waits
+                self.local_error = e
+
+        self._local_thread = threading.Thread(target=consume, name="DeployLocalManager",
+                                              daemon=True)
+        self._local_thread.start()
+
+    def terminate(self, name: str, timeout: float = 30) -> dict:
+        """SIGTERM one process: it must exit 0 within ``timeout`` seconds."""
+        proc = self.procs[name]
+        check(proc.popen.poll() is None, f"deployment: {name} exited early "
+              f"({proc.popen.returncode})")
+        proc.done = True
+        t0 = time.perf_counter()
+        proc.popen.terminate()
+        try:
+            rc = proc.popen.wait(timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        exit_s = time.perf_counter() - t0
+        check(rc == 0, f"deployment: {name} exited {rc} after SIGTERM "
+              f"(in {exit_s:.1f} s)")
+        return {"exit_s": exit_s, "rc": rc}
+
+    def sigterm_bundle(self, seen: set) -> dict:
+        """The one bundle a SIGTERM dumped since ``seen`` (file names)."""
+        new = sorted(p for p in self.dump_dir.glob("*-sigterm.json") if p.name not in seen)
+        check(len(new) == 1, f"deployment: {len(new)} new SIGTERM bundles")
+        seen.add(new[0].name)
+        return json.loads(new[0].read_text())
+
+    def close(self) -> None:
+        """Kill whatever still runs and stop the local consumer."""
+        for proc in self.procs.values():
+            if not proc.stopped:
+                proc.popen.kill()
+                proc.popen.wait(10)
+        if self._updates is not None:
+            self._updates.close()
+            self._local_thread.join(10)
+        if self.input is not None:
+            self.input.close()
+
+    def tails(self) -> str:
+        return "\n".join(f"--- {name} (exit {p.popen.poll()}), last 40 lines:\n{p.tail()}"
+                         for name, p in self.procs.items())
+
+    # -- reads --------------------------------------------------------------------
+    def update_size(self) -> int:
+        return self.broker.size(self.update_topic)
+
+    def metrics(self, r: int) -> dict:
+        with contextlib.closing(HttpClient(self.replica_ports[r], timeout=30)) as c:
+            status, _, data = c.request("GET", "/metrics")
+        check(status == 200, f"deployment: serving-{r} /metrics {status}")
+        return parse_prometheus(data.decode())
+
+    def replica_consumed(self, r: int) -> int:
+        try:
+            m = self.metrics(r)
+        except (OSError, http.client.HTTPException):
+            return -1
+        return int(m.get("oryx_serving_updates_consumed_total", {}).get("", 0))
+
+    def wait_offset(self, group: str, offset: int, timeout: float, what: str) -> float:
+        # every poll is an RPC on the broker the tiers are using: 0.1 s
+        return wait_until(lambda: self.broker.get_offset(group, self.input_topic) == offset,
+                          timeout, what, layers=self.procs.values(), poll=0.1)
+
+    def wait_local(self, n: int, timeout: float, what: str) -> float:
+        """Wait until this process's manager has applied ``n`` messages;
+        returns the perf_counter time it applied the n-th."""
+        wait_until(lambda: len(self.applied) >= n or self.local_error is not None,
+                   timeout, what, layers=self.procs.values())
+        check(self.local_error is None,
+              f"{what}: the local consumer failed: {self.local_error!r}")
+        check(len(self.applied) == n, f"{what}: {len(self.applied)} applied, expected {n}")
+        return self.applied[n - 1]
+
+    def wait_replicas(self, n: int, timeout: float, what: str) -> list:
+        """Wait until every replica has consumed ``n`` update messages (its
+        ``oryx_serving_updates_consumed_total``, read every 50 ms; the
+        consumer takes a message only after applying the one before, so
+        this is the n-th handed to its manager); returns, per replica, the
+        perf_counter time it was first seen there."""
+        seen: dict = {}
+
+        def all_there():
+            for r in range(len(self.replica_ports)):
+                if r not in seen and self.replica_consumed(r) >= n:
+                    seen[r] = time.perf_counter()
+            return len(seen) == len(self.replica_ports)
+
+        wait_until(all_there, timeout, what, layers=self.procs.values(), poll=0.05)
+        for r in range(len(self.replica_ports)):
+            got = self.replica_consumed(r)
+            check(got == n, f"{what}: serving-{r} consumed {got}, expected {n}")
+        return [seen[r] for r in range(len(self.replica_ports))]
+
+    def speed_ready(self, lines, timeout: float) -> int:
+        """Send ``lines`` one at a time, each after the speed tier's
+        generation of the one before committed, until a generation publishes
+        an ``UP`` (its model is loaded); returns how many were sent."""
+        end = self.broker.size(self.input_topic)
+        for n, ln in enumerate(lines, 1):
+            before = self.update_size()
+            self.input.send(None, ln)
+            end += 1
+            self.wait_offset(self.speed_group, end, timeout,
+                             "deployment: the speed tier's probe generation")
+            if self.update_size() > before:
+                return n
+        raise SmokeFailure(f"deployment: the speed tier published nothing for "
+                           f"{len(lines)} probe lines")
+
+
+def publish_us(landed, start: int, end: int) -> dict:
+    """Microseconds a message between landings on the update topic, over
+    ``landed[start:end]``, taken within each publisher's run (the messages
+    that share a watermark header: one speed generation each; a batch
+    generation's stream carries none): summed spans over summed gaps."""
+    runs: dict = {}
+    for t, _, watermark in landed[start:end]:
+        runs.setdefault(watermark, []).append(t)
+    span = sum(ts[-1] - ts[0] for ts in runs.values())
+    gaps = sum(len(ts) - 1 for ts in runs.values())
+    return {"messages": end - start, "runs": len(runs),
+            "us_per_message": span / gaps * 1e6 if gaps else None}
+
+
+def broker_ops(text: str) -> dict:
+    """Per RPC op, from the broker process's registry (its ``metrics``
+    RPC): the RPCs it handled and their mean server-side milliseconds
+    (frame decoded to response written)."""
+    m = parse_prometheus(text)
+    sums = m.get("oryx_netbroker_rpc_latency_seconds_sum", {})
+    return {labels[len('op="'):-1]: {"rpcs": int(n), "mean_ms": sums[labels] / n * 1e3}
+            for labels, n in m.get("oryx_netbroker_rpc_latency_seconds_count", {}).items()
+            if n}
+
+
+def read_range(broker, topic: str, start: int, end: int) -> list:
+    """Every message of ``topic`` in ``[start, end)``, over as many reads as
+    the broker pages them into."""
+    out: list = []
+    while start + len(out) < end:
+        page = broker.read(topic, start + len(out), end - start - len(out))
+        check(page, f"deployment: an empty read of {topic} at {start + len(out)}")
+        out.extend(page)
+    return out
+
+
+def bundle_failures(bundle: dict) -> dict:
+    """The failure counters a tier's flight-recorder bundle holds above 0."""
+    return {f"{name}{{{labels}}}": value for name in FAILURE_COUNTERS
+            for labels, value in bundle["metrics"].get(name, {}).items() if value}
+
+
+def deployment_run(dep: Deployment, lines, rng, timeout: float = 600) -> dict:
+    """The phase's body on a ``Deployment`` with nothing started yet; every
+    wait fails after ``timeout`` seconds (the batch generation's, 1.5 x)."""
+    n = len(lines)
+    n_train = int(round(n * (1.0 - TEST_FRACTION)))
+    held_out = lines[n_train:]
+    out: dict = {"lines": n, "replicas": len(dep.replica_ports)}
+    t0 = time.perf_counter()
+    bulk_load(dep.topics_dir, dep.input_topic, lines)
+    # a layer without a stored offset starts at its input's end
+    tp.FileBroker(str(dep.topics_dir)).set_offset(dep.batch_group, dep.input_topic, 0)
+    out["bulk_load_s"] = time.perf_counter() - t0
+    out["broker_up_s"] = dep.start_broker()
+    dep.start_replicas()
+    dep.start_tier("speed")
+    dep.start_local()
+    bundles: set = set()
+    t_batch = time.perf_counter()
+    dep.start_tier("batch")
+
+    # the batch generation: it ends when the batch group's offset reaches
+    # the input's end; the batch process is then stopped, so that no second
+    # generation reads the microbatch below (as lambda_loop closes its layer)
+    t_commit = dep.wait_offset(dep.batch_group, n, 1.5 * timeout,
+                              "deployment: the batch generation")
+    exits = {"batch": dep.terminate("batch")}
+    batch_bundle = dep.sigterm_bundle(bundles)
+    failures = {f"batch: {k}": v for k, v in bundle_failures(batch_bundle).items()}
+    n_gen = dep.update_size()
+    t_local = dep.wait_local(n_gen, timeout, "deployment: the local manager applies the generation")
+    t_served = dep.wait_replicas(n_gen, timeout, "deployment: the replicas apply the generation")
+    t_model, key, _ = dep.landed[0]
+    check(key == "MODEL", f"deployment: the first update is {key}")
+    first = read_range(dep.broker, dep.update_topic, 0, 1)[0]
+    stamp = lineage.parse_stamp(first.headers)
+    check(stamp is not None and stamp["offsets"] == {"0": n},
+          f"deployment: the MODEL's stamp {stamp}")
+    generation = stamp["generation"]
+    calls = batch_bundle["metrics"].get("oryx_device_calls_total", {})
+    out["launches"] = {
+        "gather_gramian_accumulate": int(calls.get('program="gather_gramian_accumulate"', 0)),
+        "spd_solve_batched": int(sum(v for k, v in calls.items()
+                                     if k.startswith('program="spd_solve_batched.'))),
+        "gather_gramian_accumulate.reduce":
+            int(calls.get('program="gather_gramian_accumulate.reduce"', 0)),
+        "by_program": calls}
+    out["generation"] = {
+        "generation_s": t_model - t_batch,
+        "batch_step_s": batch_bundle["metrics"]["oryx_step_duration_seconds_sum"][
+            'tier="batch",step="generation"'],
+        "start_to_commit_s": t_commit - t_batch,
+        "messages": n_gen, "generation_id": generation,
+        "up_publish": publish_us(dep.landed, 0, n_gen),
+        "local_applied_after_model_s": t_local - t_model,
+        "publish_to_servable_s": [t - t_model for t in t_served]}
+
+    # what the broker did for the generation's stream: appends, and the
+    # consumers' long-polls and reads around them
+    out["generation"]["broker_ops"] = broker_ops(dep.broker.server_metrics())
+
+    # answers: the local manager's model on the 10% hold-out, then both
+    # replicas against it
+    model = dep.local.get_model()
+    check(model.get_fraction_loaded() == 1.0, "deployment: the local model is not loaded")
+    train = als_data.prepare(lines[:n_train], implicit=True)
+    test = holdout_batch(held_out, train.users, train.items)
+    x = torch.as_tensor(np.stack([model.get_user_vector(u)
+                                  for u in train.users.index_to_id]), device=model.device)
+    y = torch.as_tensor(np.stack([model.get_item_vector(i)
+                                  for i in train.items.index_to_id]), device=model.device)
+    auc = evaluate.area_under_curve(x, y, train, test, rng=np.random.default_rng(SEED + 3))
+    out["auc"] = auc
+    users = model.all_user_ids()
+    sample = [users[j] for j in rng.choice(len(users), min(HTTP_USERS, len(users)),
+                                           replace=False)]
+    replicas = []
+    for r, port in enumerate(dep.replica_ports):
+        client = HttpClient(port)
+        try:
+            status, _, data = client.request("GET", "/readyz")
+            readyz = json.loads(data)
+            check(status == 200 and readyz["model"] == "loaded",
+                  f"deployment: serving-{r} /readyz {status} {readyz}")
+            t0 = time.perf_counter()
+            requests = check_recommend(client, model, sample, generation,
+                                       f"deployment serving-{r}")
+            replicas.append({"recommend_checked": requests,
+                             "seconds": time.perf_counter() - t0})
+        finally:
+            client.close()
+        info = dep.metrics(r).get("oryx_build_info", {})
+        replicas[-1]["build_info"] = [k for k, v in info.items() if v == 1.0]
+    out["answers"] = replicas
+
+    # one microbatch over the wire, once the speed tier has its model
+    n_probe = dep.speed_ready(held_out[:DEPLOY_PROBE_LINES], timeout)
+    mb_lines = held_out[n_probe:n_probe + DEPLOY_MICROBATCH]
+    n0 = dep.update_size()
+    dep.wait_local(n0, timeout, "deployment: the local manager applies the probe's UPs")
+    dep.wait_replicas(n0, timeout, "deployment: the replicas apply the probe's UPs")
+    input_end = dep.broker.size(dep.input_topic) + len(mb_lines)
+    t_first = time.perf_counter()
+    for ln in mb_lines:
+        dep.input.send(None, ln)
+    t_last = time.perf_counter()
+    dep.wait_offset(dep.speed_group, input_end, timeout,
+                    "deployment: the speed generations of the microbatch")
+    n1 = dep.update_size()
+    t_served = dep.wait_replicas(n1, timeout, "deployment: the replicas apply the microbatch")
+    dep.wait_local(n1, timeout, "deployment: the local manager applies the microbatch")
+    ups = read_range(dep.broker, dep.update_topic, n0, n1)
+    check(ups and {km.key for km in ups} == {"UP"},
+          f"deployment: {len(ups)} messages of the microbatch, keys "
+          f"{ {km.key for km in ups} }")
+    touched = sorted({json.loads(km.message)[1] for km in ups
+                      if km.message.startswith('["X"')})
+    touched = [touched[j] for j in rng.choice(len(touched), min(HTTP_TOUCHED, len(touched)),
+                                              replace=False)]
+    for r, port in enumerate(dep.replica_ports):
+        with contextlib.closing(HttpClient(port)) as client:
+            check_recommend(client, model, touched, generation,
+                            f"deployment serving-{r} touched")
+    publish = publish_us(dep.landed, n0, n1)
+    out["microbatch"] = {
+        "lines": len(mb_lines), "probe_lines": n_probe, "ups": n1 - n0,
+        "produce_us": (t_last - t_first) / len(mb_lines) * 1e6,
+        "ticks": publish["runs"], "up_publish_us": publish["us_per_message"],
+        "append_to_servable_s": [t - t_last for t in t_served],
+        "touched_checked": len(touched)}
+
+    out["broker_ops"] = broker_ops(dep.broker.server_metrics())
+
+    # shutdown: each tier, then the broker; no tier may count a failure
+    for name in [f"serving-{r}" for r in range(len(dep.replica_ports))] + ["speed"]:
+        exits[name] = dep.terminate(name)
+        failures.update({f"{name}: {k}": v
+                         for k, v in bundle_failures(dep.sigterm_bundle(bundles)).items()})
+    exits["broker"] = dep.terminate("broker")
+    check(not failures, f"deployment: failures counted: {failures}")
+    out["exits"] = exits
+    out["failures"] = failures
+    return out
+
+
+def deployment_phase(lines, rng, in_process: dict) -> dict:
+    """The ALS loop as a deployment (see the module docstring): five
+    processes through the port's CLI over ``tcp:``, checked against a
+    manager in this process; beside it the in-process loop's figures from
+    this run (``in_process``: the ``lambda_loop`` line's ``speed``)."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="oryx-deploy-") as tmp:
+        dep = Deployment(tmp, {}, DEPLOY_REPLICAS)
+        try:
+            out = deployment_run(dep, lines, rng)
+        except BaseException:
+            print(dep.tails(), file=sys.stderr, flush=True)
+            raise
+        finally:
+            dep.close()
+    check(not any(K.LAUNCHES.values()),
+          f"deployment: kernels launched in this process: {K.LAUNCHES}")
+    check(out["auc"] > 0.75, f"deployment: hold-out AUC {out['auc']} <= 0.75")
+    for r in out["answers"]:
+        check(any('backend="cuda"' in k for k in r["build_info"]),
+              f"deployment: a replica serves from {r['build_info']}")
+    out["in_process"] = [{
+        "up_publish_us_per_send": mb["pump"]["up_publish_s"] / mb["ups"] * 1e6,
+        "append_to_servable_s": mb["append_to_servable_s"]}
+        for mb in in_process["microbatches"]]
+    out["reduced"] = {
+        "users": f"the lines of the first {LOOP_USERS} of {N_USERS} users, as "
+                 "lambda_loop's (one RPC a published UP)",
+        "microbatch_lines": f"{DEPLOY_MICROBATCH} over tcp, cut from lambda_loop's "
+                            f"2 x {SPEED_MICROBATCH} for the per-send cost",
+        "input": "bulk-loaded into the file: log before the broker starts, "
+                 "not sent over tcp"}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2931,12 +3528,21 @@ def main() -> int:
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
-    # last: mostly host work, and nothing after it is profiled
-    loop = lambda_loop_phase(lines, rng)
+    # last: mostly host work, and nothing after it is profiled; the loop
+    # and the deployment on the first LOOP_USERS users' lines
+    loop_lines = [ln for ln in lines if int(ln[1:ln.index(",")]) < LOOP_USERS]
+    loop = lambda_loop_phase(loop_lines, rng)
+    loop["reduced"] = {
+        "users": f"the lines of the first {LOOP_USERS} of {N_USERS} users "
+                 f"({len(loop_lines)} lines), as the deployment's",
+        "microbatches": f"2 x {SPEED_MICROBATCH}, cut from 2 x 50000 with the users"}
     serving_http = loop.pop("serving_http")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
     generation, speed = loop["batch"], loop["speed"]
+    # the same loop as a deployment of CLI processes over tcp:
+    deployment = deployment_phase(loop_lines, rng, speed)
+    emit("deployment", **deployment)
 
     # each entry's launches at its shape, from the run of the path that
     # reaches it: the ALS run above, build_model (100k x 64), kmeans_train's
@@ -2972,7 +3578,17 @@ def main() -> int:
         # the HTTP app's path (the ALS and the k-means layer) launches none
         "serving_http": {w: serving_http["launches"][w] + km_http["launches"][w]
                          for w in serving_http["launches"]},
+        # read from the batch process's oryx_device_calls_total
+        "deployment": {w: deployment["launches"][w] for w in ALS_WRAPPERS},
     }
+    # the same lines, split and shapes as the loop's batch half: the same
+    # launches, kernel by kernel, the gather-Gramian's reduce too
+    loop_reduce = sum(c for key, c in generation["shape_launches"].items()
+                      if key.startswith("gather_gramian_accumulate.reduce"))
+    check(paths["deployment"] == paths["lambda_loop.batch"]
+          and deployment["launches"]["gather_gramian_accumulate.reduce"] == loop_reduce,
+          f"deployment: the batch process launched {deployment['launches']}, the "
+          f"loop's batch half {paths['lambda_loop.batch']} (reduce {loop_reduce})")
     # each later path's launches held against the plain versions, one
     # record per shape the path launched at
     path_checks = {

@@ -3,9 +3,10 @@
 A copy of the JAX package's ``oryx_tpu/common/lockutils.py`` (host code, no
 JAX): the readers-writer lock the feature-vector stores take, and
 ``RateLimitCheck``, which throttles the speed tier's "not loaded yet" log
-and the serving manager's solver pre-trigger. ``AutoLock`` and the
-shutdown hook are left out: nothing in the port uses them. Held equal to
-the reference by ``tests/test_torch_als_speed.py``.
+and the serving manager's solver pre-trigger, and :func:`close_at_shutdown`,
+which the CLI registers each layer with. ``AutoLock`` is left out: nothing
+in the port uses it. Held equal to the reference by
+``tests/test_torch_als_speed.py`` and ``tests/test_torch_cli.py``.
 Below, "the reference" is the original Oryx that module was modelled on
 (framework/oryx-common/.../lang/AutoReadWriteLock.java,
 RateLimitCheck.java).
@@ -13,8 +14,10 @@ RateLimitCheck.java).
 
 from __future__ import annotations
 
+import atexit
 import threading
 import time
+from typing import Any
 
 
 class _RWState:
@@ -95,3 +98,29 @@ class RateLimitCheck:
                 self._next = now + self._interval
                 return True
             return False
+
+
+_shutdown_hook_items: list[Any] = []
+_shutdown_lock = threading.Lock()
+_hook_registered = False
+
+
+def _run_shutdown_hook() -> None:
+    with _shutdown_lock:
+        items, _shutdown_hook_items[:] = list(_shutdown_hook_items), []
+    # LIFO, mirroring OryxShutdownHook ordering
+    for item in reversed(items):
+        try:
+            item.close()
+        except Exception:  # noqa: BLE001 - best-effort teardown
+            pass
+
+
+def close_at_shutdown(closeable: Any) -> None:
+    """Register orderly close at interpreter exit (JVMUtils.closeAtShutdown)."""
+    global _hook_registered
+    with _shutdown_lock:
+        if not _hook_registered:
+            atexit.register(_run_shutdown_hook)
+            _hook_registered = True
+        _shutdown_hook_items.append(closeable)

@@ -55,6 +55,9 @@ class BatchLayer(AbstractLayer):
         self._update_instance: BatchLayerUpdate | None = None
 
     def start(self, interval_sec: float | None = None) -> None:
+        # the device first: without the card this raises before any topic,
+        # thread or socket exists
+        self.get_context()
         self.assert_topics()
         self._update_instance = self.load_update_instance()
         log.info("starting batch layer; interval=%ss", interval_sec or self.generation_interval_sec)

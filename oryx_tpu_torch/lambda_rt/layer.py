@@ -12,12 +12,13 @@ Two changes from the JAX package:
 
   * ``__init__`` configures only the hooks the port has (metrics, spans,
     resilience, faults, blackbox, the SLO engine, the tsdb sampler, the
-    file broker's fsync policy). The reference's compile cache, profiling,
-    netbroker, factor-arena and sanitizer hooks are not ported.
-  * The context's device is resolved by ``start()`` (through
-    :meth:`AbstractLayer.load_manager_instance`), before any thread is
-    spawned: a layer configured for the card on a host without one raises
-    there, instead of failing each generation into quarantine. A
+    ``tcp:`` client defaults, the file broker's fsync policy). The
+    reference's compile cache, profiling, factor-arena and sanitizer hooks
+    are not ported (ROADMAP Queue 1, item 7).
+  * The context's device is resolved first in ``start()``, before any
+    topic is checked, any thread spawned or any socket opened: a layer
+    configured for the card on a host without one raises there, instead of
+    failing each generation into quarantine. A
     configured class whose constructor takes a ``device`` keyword is built
     on that device.
 """
@@ -39,6 +40,7 @@ from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common import tsdb
 from oryx_tpu_torch.common.tracing import StepTracer
 from oryx_tpu_torch.parallel.mesh import ComputeContext
+from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
 
 log = spans.get_logger(__name__)
@@ -83,6 +85,8 @@ class AbstractLayer:
         # same curated signal history — their blackbox dumps carry the
         # pre-incident window exactly like a serving replica's
         tsdb.configure(config)
+        # tcp:// broker client knobs (oryx.broker.tcp.*), process-wide
+        netbroker.configure(config)
         tp.configure(config)  # file-broker fsync durability policy
         self.tracer = StepTracer(config, tier)
         self.id = config.get_string("oryx.id", None)

@@ -48,6 +48,9 @@ class SpeedLayer(AbstractLayer):
         self._producer: TopicProducerImpl | None = None
 
     def start(self, interval_sec: float | None = None) -> None:
+        # the device first: without the card this raises before any topic,
+        # thread or socket exists
+        self.get_context()
         self.assert_topics()
         self.model_manager = self.load_manager_instance(
             "oryx.speed.model-manager-class", SpeedModelManager

@@ -6,9 +6,9 @@ JAX) on the same aiohttp, held to it over HTTP by
 
   * :func:`make_app` configures only the hooks the port has (metrics,
     spans, resilience, faults, blackbox, the SLO engine, the tsdb sampler,
-    lineage, the file broker's fsync policy). The reference's compile
-    cache, profiling, sanitizer, factor-arena and ``tcp:`` client hooks are
-    not ported (ROADMAP Queue 1, items 3b and 7).
+    lineage, the ``tcp:`` client defaults, the file broker's fsync policy).
+    The reference's compile cache, profiling, sanitizer and factor-arena
+    hooks are not ported (ROADMAP Queue 1, item 7).
   * ``ServingLayer(config, device=None)`` serves a model on ``device``:
     None means the CUDA card. ``start()`` resolves it before it creates a
     topic, a thread, a producer or a socket, so on a host without a card it
@@ -43,6 +43,7 @@ import ssl
 import threading
 import time
 
+import torch
 from aiohttp import web
 
 from oryx_tpu_torch.api.serving import ServingModelManager
@@ -59,6 +60,7 @@ from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common import tsdb
 from oryx_tpu_torch.serving import resource as rsrc
+from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch.transport.topic import (
     ConsumeDataIterator,
@@ -403,10 +405,12 @@ def make_app(config, manager, input_producer=None) -> web.Application:
     # GET /lineage, the freshness gauges and the x-oryx-model-generation
     # response header)
     lineage.configure(config)
+    # tcp client knobs (oryx.broker.tcp.*) for any get_broker below
+    netbroker.configure(config)
     tp.configure(config)  # file-broker fsync durability policy
-    # not ported: netbroker.configure (the tcp:// broker, ROADMAP Queue 1,
-    # item 3b), als_vectors.configure (the factor arena), profiling.configure
-    # and sanitize.configure (tooling, item 7)
+    # not ported: als_vectors.configure (the factor arena),
+    # profiling.configure and sanitize.configure (tooling, ROADMAP Queue 1,
+    # item 7)
     middlewares = [_metrics_middleware, rsrc.error_middleware, _compression_middleware]
     dl_mw = _deadline_middleware(config)
     if dl_mw is not None:
@@ -792,6 +796,9 @@ class ServingLayer:
             raise NotImplementedError(
                 "oryx.als.rescorer-provider-class: the rescorer is not "
                 "ported yet (ROADMAP Queue 1, item 4)")
+        # tcp client knobs must be adopted BEFORE the first get_broker()
+        # (start() resolves brokers well before make_app re-configures)
+        netbroker.configure(config)
         tp.configure(config)
         self._device_arg = device
         self.device = None  # resolved by start()
@@ -839,6 +846,11 @@ class ServingLayer:
         # the device first: without the card this raises before any topic,
         # thread, producer or socket exists
         self.device = resolve(self._device_arg)
+        # the build-info sample names the device the model serves from (the
+        # reference's profiling.configure sets it; profiling is not ported)
+        metrics_mod.set_build_info(
+            self.device.type, torch.cuda.get_device_name(self.device)
+            if self.device.type == "cuda" else "cpu")
         # retry shapes + fault schedules must be live before the update
         # consumer below takes its first message (make_app runs after it)
         resilience.configure(self.config)

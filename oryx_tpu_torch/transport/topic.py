@@ -3,10 +3,9 @@
 A copy of the JAX package's ``oryx_tpu/transport/topic.py`` (host code, no
 JAX), held to it by ``tests/test_torch_transport.py``: the same framing
 bytes, so a ``file:`` log or offset store written by either package is read
-whole by the other. One change: the ``tcp://`` netbroker is not ported yet
-(ROADMAP Queue 1, item 3b), so :func:`get_broker` raises a
-:class:`TopicException` for a ``tcp://`` URL and :func:`reset_tcp_clients`
-has nothing to drop.
+whole by the other. A ``tcp://host:port`` URL resolves to a cached
+client of the port's network broker
+(:mod:`oryx_tpu_torch.transport.netbroker`), as in the reference.
 
 TPU-native replacement for the reference's Kafka/ZooKeeper messaging layer
 (framework/kafka-util/.../KafkaUtils.java:63-188 and
@@ -340,12 +339,14 @@ class Broker:
 
 _memory_brokers: dict[str, "MemoryBroker"] = {}
 _memory_lock = threading.Lock()
+_tcp_clients: dict[str, Broker] = {}
+_tcp_lock = threading.Lock()
 
 
 def get_broker(url: str) -> Broker:
-    """Resolve a broker from a config URL: ``memory:[name]`` (in-process)
-    or ``file:<dir>`` (shared-filesystem durable log). ``tcp://host:port``
-    (the network broker) is not ported yet and raises."""
+    """Resolve a broker from a config URL: ``memory:[name]`` (in-process),
+    ``file:<dir>`` (shared-filesystem durable log), or ``tcp://host:port``
+    (network broker server — transport/netbroker.py)."""
     if url.startswith("memory:"):
         name = url[len("memory:"):] or "default"
         with _memory_lock:
@@ -354,10 +355,16 @@ def get_broker(url: str) -> Broker:
                 b = _memory_brokers[name] = MemoryBroker()
             return b
     if url.startswith("tcp://"):
-        raise TopicException(
-            f"{url}: the tcp:// network broker is not ported yet "
-            "(ROADMAP Queue 1, item 3b); use memory: or file:<dir>"
-        )
+        # one shared client per URL: threads each get their own socket
+        # inside it, and every producer/consumer in the process reuses the
+        # same connection pool instead of minting new ones per component
+        from oryx_tpu_torch.transport import netbroker
+
+        with _tcp_lock:
+            c = _tcp_clients.get(url)
+            if c is None:
+                c = _tcp_clients[url] = netbroker.client_from_url(url)
+            return c
     if url.startswith("file:"):
         return FileBroker(url[len("file:"):])
     raise TopicException(f"unknown broker url: {url}")
@@ -370,7 +377,9 @@ def reset_memory_brokers() -> None:
 
 
 def reset_tcp_clients() -> None:
-    """No-op: the port has no tcp:// clients to drop (item 3b)."""
+    """Drop cached tcp clients (test isolation across server restarts)."""
+    with _tcp_lock:
+        _tcp_clients.clear()
 
 
 class _MemoryPartition:

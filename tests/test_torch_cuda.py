@@ -756,3 +756,66 @@ def test_serving_layer_on_the_card_answers_as_on_the_cpu(cuda_device, tmp_path):
             client.close()
             layer.close()
         tp.reset_memory_brokers()
+
+
+@pytest.mark.cuda
+def test_deployment_serving_replica_on_the_card_over_tcp(cuda_device, tmp_path):
+    """The CLI's broker and one serving replica, each a process
+    (``python -m oryx_tpu_torch.cli``, ``chip_smoke.Deployment``), the
+    replica on the card (``platform`` null); one ``MODEL`` + ``UP`` stream
+    (seeded factors, five known items per user) produced over ``tcp:``
+    from this process, whose own manager on the card consumes it too: 200
+    seeded ``/recommend`` answers equal the manager's (ids; scores within
+    1e-5 relative), ``/readyz`` 200 with the model loaded, the replica's
+    build info on ``cuda``, and both processes exit 0 on SIGTERM."""
+    from chip_smoke import Deployment, HttpClient, check_recommend
+    from oryx_tpu_torch.models.als import pmml_codec
+    from oryx_tpu_torch.pmml import pmmlutils
+    from oryx_tpu_torch.transport import topic as tp
+
+    rng = np.random.default_rng(SEED + 11)
+    n_users, n_items, k = 2_000, 3_000, 16
+    users = [f"u{j}" for j in range(n_users)]
+    items = [f"i{j}" for j in range(n_items)]
+    x = rng.standard_normal((n_users, k)).astype(np.float32)
+    y = rng.standard_normal((n_items, k)).astype(np.float32)
+    pmml = pmml_codec.model_to_pmml(x, y, users, items, k, 0.1, 1.0, True,
+                                    False, 1e-5, tmp_path / "model")
+    tp.reset_tcp_clients()
+    dep = Deployment(str(tmp_path), {"oryx.als.hyperparams.features": k},
+                     replicas=1)
+    try:
+        dep.start_broker()
+        dep.start_replicas()
+        dep.start_local()
+        prod = tp.TopicProducerImpl(dep.url, dep.update_topic)
+        prod.send("MODEL", pmmlutils.to_string(pmml))
+        for id_, vec in pmml_codec.read_features(tmp_path / "model" / "Y"):
+            prod.send("UP", json.dumps(["Y", id_, [float(v) for v in vec]]))
+        for id_, vec in pmml_codec.read_features(tmp_path / "model" / "X"):
+            known = [items[j] for j in rng.choice(n_items, 5, replace=False)]
+            prod.send("UP", json.dumps(["X", id_, [float(v) for v in vec], known]))
+        prod.close()
+        total = dep.update_size()
+        dep.wait_local(total, 120, "the local manager")
+        dep.wait_replicas(total, 120, "the replica")
+        model = dep.local.get_model()
+        assert model.y_snapshot().mat.device.type == "cuda"
+        client = HttpClient(dep.replica_ports[0])
+        try:
+            status, _, body = client.request("GET", "/readyz")
+            assert status == 200 and json.loads(body)["model"] == "loaded"
+            sample = [users[j] for j in rng.choice(n_users, 100, replace=False)]
+            assert check_recommend(client, model, sample, None, "replica") == 200
+        finally:
+            client.close()
+        info = dep.metrics(0)["oryx_build_info"]
+        assert any('backend="cuda"' in key and v == 1.0 for key, v in info.items())
+        for name in ("serving-0", "broker"):
+            assert dep.terminate(name)["rc"] == 0
+    except BaseException:
+        print(dep.tails())
+        raise
+    finally:
+        dep.close()
+        tp.reset_tcp_clients()

@@ -54,6 +54,7 @@ def _port_sources():
     yield os.path.join(REPO, "tune_gather_gramian.py")
     yield os.path.join(REPO, "fp32_ceiling.py")
     yield os.path.join(REPO, "profiler_gap.py")
+    yield os.path.join(REPO, "netbroker_rpc.py")
 
 
 def _imported_modules(path):
@@ -85,6 +86,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "serving/resources/als.py", "serving/resources/kmeans.py",
             "common/slo.py", "common/tsdb.py", "common/compilecache.py",
             "common/lineage.py", "api/serving.py"} <= scanned
+    assert {"cli/__init__.py", "cli/__main__.py", "cli/main.py",
+            "transport/netbroker.py", "parallel/distributed.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):

@@ -1,11 +1,12 @@
 """The port's topic transport, held to the reference's contract.
 
-Mirrors every ``memory:`` and ``file:`` case of
-``tests/test_transport_store.py`` on ``oryx_tpu_torch.transport.topic``
-(the broker contract suite over ``["memory", "file"]``, the
-non-parametrised cases, and the ``file`` halves of the ``scheme`` cases;
-the ``tcp:`` cases wait for the port's netbroker). The subprocess consumer
-imports the port, not the reference.
+Mirrors every case of ``tests/test_transport_store.py`` on
+``oryx_tpu_torch.transport.topic`` and ``oryx_tpu_torch.transport.netbroker``
+(the broker contract suite over ``["memory", "file", "tcp"]``, a live port
+netbroker server per ``tcp`` case, the non-parametrised cases, the
+``test_tcp_*`` cases, and both halves of the ``scheme`` cases). The
+subprocess consumer imports the port, not the reference. Wire and segment
+parity with the reference's netbroker is ``tests/test_torch_netbroker.py``.
 
 Then the cross-package parity cases: ``frame_record`` / ``decode_record``
 give the same bytes and records in both packages; a ``file:`` log and
@@ -29,6 +30,7 @@ import torch
 from oryx_tpu.transport import topic as ref_tp
 from oryx_tpu_torch.api.keymessage import KeyMessage
 from oryx_tpu_torch.store.datastore import DataStore, ModelStore
+from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
 
 # six xdist workers share the CPU with wall-clock gates elsewhere in the suite
@@ -36,25 +38,35 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-ALL_BROKERS = ["memory", "file"]
+ALL_BROKERS = ["memory", "file", "tcp"]
 
 
 @pytest.fixture(autouse=True)
 def _fresh_brokers():
     tp.reset_memory_brokers()
+    tp.reset_tcp_clients()
     ref_tp.reset_memory_brokers()
     yield
     tp.reset_memory_brokers()
+    tp.reset_tcp_clients()
     ref_tp.reset_memory_brokers()
 
 
 @pytest.fixture(params=ALL_BROKERS)
 def broker_url(request, tmp_path):
-    """One URL per ported broker backend."""
+    """One URL per broker backend; tcp spins a real port netbroker server."""
     if request.param == "memory":
         yield "memory:"
-    else:
+    elif request.param == "file":
         yield f"file:{tmp_path}/broker"
+    else:
+        server = netbroker.NetBrokerServer(
+            str(tmp_path / "tcpbroker"), host="127.0.0.1", port=0
+        ).start_background()
+        try:
+            yield f"tcp://127.0.0.1:{server.port}"
+        finally:
+            server.close()
 
 
 def test_roundtrip(broker_url):
@@ -299,10 +311,9 @@ def test_max_size_enforced_for_bytes():
 
 
 def test_bytes_messages_rejected_typed_on_durable_brokers(tmp_path):
-    """memory: accepts bytes, but the JSON-record file: broker must refuse
-    them TYPED — a raw json.dumps TypeError would escape the transport
-    contract (and the retry predicate). (The reference's tcp: half waits
-    for the netbroker.)"""
+    """memory: accepts bytes, but the JSON-record brokers (file:, tcp:)
+    must refuse them TYPED — a raw json.dumps TypeError would escape the
+    transport contract (and the retry predicate)."""
     fb = tp.get_broker(f"file:{tmp_path}/b")
     fb.create_topic("T")
     with pytest.raises(tp.TopicException) as ei:
@@ -310,6 +321,116 @@ def test_bytes_messages_rejected_typed_on_durable_brokers(tmp_path):
     assert not ei.value.transient
     fb.append("T", "k", "str is fine")
     assert fb.size("T") == 1
+    server = netbroker.NetBrokerServer(
+        str(tmp_path / "tcpb"), host="127.0.0.1", port=0
+    ).start_background()
+    try:
+        tb = tp.get_broker(f"tcp://127.0.0.1:{server.port}")
+        tb.create_topic("T")
+        with pytest.raises(tp.TopicException):
+            tb.append("T", "k", b"payload")
+        tb.append("T", "k", "str is fine")
+        assert tb.size("T") == 1
+    finally:
+        server.close()
+
+
+def test_tcp_append_retry_with_same_token_does_not_duplicate(tmp_path):
+    """Producer idempotence over the wire: a retried append carrying the
+    same token (the lost-response case) is acknowledged without appending
+    again — tcp keeps the in-process brokers' no-duplicate retry story."""
+    server = netbroker.NetBrokerServer(
+        str(tmp_path / "b"), host="127.0.0.1", port=0
+    ).start_background()
+    try:
+        broker = tp.get_broker(f"tcp://127.0.0.1:{server.port}")
+        broker.create_topic("T")
+        broker.append("T", "k", "once", token="tok-1")
+        broker.append("T", "k", "once", token="tok-1")  # the "retry"
+        broker.append("T", "k", "other", token="tok-2")
+        assert [km.message for km in broker.read("T", 0)] == ["once", "other"]
+        # the producer path threads a fresh token through each send
+        prod = tp.TopicProducerImpl(f"tcp://127.0.0.1:{server.port}", "T")
+        prod.send("k", "via-producer")
+        assert broker.size("T") == 3
+    finally:
+        server.close()
+
+
+def test_tcp_read_responses_are_byte_bounded(tmp_path):
+    """A backlog whose full read response would blow the frame cap is
+    paged into smaller frames instead of wedging the consumer: every
+    message still arrives, in order, over several RPCs."""
+    cap = 96 * 1024  # budget after the 64KiB envelope margin: 32KiB
+    server = netbroker.NetBrokerServer(
+        str(tmp_path / "b"), host="127.0.0.1", port=0, max_frame_bytes=cap
+    ).start_background()
+    try:
+        broker = netbroker.NetBrokerClient("127.0.0.1", server.port,
+                                           max_frame_bytes=cap)
+        broker.create_topic("T")
+        payload = "x" * 4096
+        for i in range(20):
+            broker.append("T", f"k{i}", f"{i}:{payload}")
+        # one read RPC returns a trimmed page, never an over-cap frame
+        first = broker.read("T", 0)
+        assert 1 <= len(first) < 20
+        # the blocking iterator drains the whole backlog across pages
+        it = tp.ConsumeDataIterator(broker, "T", "earliest")
+        got = [next(it).message.split(":", 1)[0] for _ in range(20)]
+        it.close()
+        assert got == [str(i) for i in range(20)]
+    finally:
+        server.close()
+
+
+def test_tcp_oversize_request_answers_typed_not_cut_socket(tmp_path):
+    """A request frame over the SERVER's cap (mismatched per-host configs)
+    comes back as a typed non-transient TopicException — not a cut socket
+    that reads as transient and fuels a retry storm — and the connection
+    stays usable for the next RPC."""
+    server = netbroker.NetBrokerServer(
+        str(tmp_path / "b"), host="127.0.0.1", port=0, max_frame_bytes=4096
+    ).start_background()
+    try:
+        # client believes in a much larger cap, so its local pre-check passes
+        client = netbroker.NetBrokerClient("127.0.0.1", server.port,
+                                           max_frame_bytes=1 << 26)
+        client.create_topic("T")
+        with pytest.raises(tp.TopicException) as ei:
+            client.append("T", "k", "y" * 10_000)
+        assert not ei.value.transient
+        assert "exceeds server max" in str(ei.value)
+        # same socket, next RPC fine
+        assert client.topic_exists("T")
+        assert client.size("T") == 0  # nothing half-applied
+    finally:
+        server.close()
+
+
+def test_tcp_client_defaults_apply_after_configure():
+    """A cached tcp client built BEFORE netbroker.configure() ran still
+    honors oryx.broker.tcp.* afterwards: defaults resolve at call time,
+    not at construction (layer startup order must not eat the config)."""
+    from oryx_tpu_torch.common import config as cfg
+
+    client = netbroker.NetBrokerClient("127.0.0.1", 1)
+    try:
+        config = cfg.overlay_on(
+            {"oryx.broker.tcp.request-timeout-sec": 3.5,
+             "oryx.broker.tcp.connect-timeout-sec": 1.5,
+             "oryx.broker.tcp.max-frame-bytes": 1024},
+            cfg.get_default(),
+        )
+        netbroker.configure(config)
+        assert client.request_timeout_sec == 3.5
+        assert client.connect_timeout_sec == 1.5
+        assert client.max_frame_bytes == 1024
+        # explicit constructor overrides still win over process defaults
+        pinned = netbroker.NetBrokerClient("127.0.0.1", 1, request_timeout_sec=9.0)
+        assert pinned.request_timeout_sec == 9.0
+    finally:
+        netbroker.configure(cfg.get_default())
 
 
 def test_rebalance_drops_lost_partition_state():
@@ -544,15 +665,22 @@ for km in it:
 _REBALANCE_TTL_SEC = 2.5
 
 
-@pytest.mark.parametrize("scheme", ["file"])
+@pytest.mark.parametrize("scheme", ["file", "tcp"])
 def test_group_rebalance_across_processes(scheme, tmp_path):
     """Cross-process consumer-group rebalance: two REAL subprocess members
     split a 4-partition topic; one is SIGKILLed, its heartbeat TTLs out,
     and the survivor picks up the orphaned partitions resuming from the
     group's committed offsets — every message consumed exactly once, none
     skipped, none re-delivered."""
-    assert scheme == "file"
-    url = f"file:{tmp_path}/broker"
+    if scheme == "file":
+        url = f"file:{tmp_path}/broker"
+        server = None
+    else:
+        server = netbroker.NetBrokerServer(
+            str(tmp_path / "tcpbroker"), host="127.0.0.1", port=0,
+            group_ttl_sec=_REBALANCE_TTL_SEC,
+        ).start_background()
+        url = f"tcp://127.0.0.1:{server.port}"
     broker = tp.get_broker(url)
     broker.create_topic("P", partitions=4)
 
@@ -620,6 +748,8 @@ def test_group_rebalance_across_processes(scheme, tmp_path):
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
+        if server is not None:
+            server.close()
 
     got_a, got_b = read_ledger("a"), read_ledger("b")
     everything = sorted(got_a + got_b)
@@ -731,14 +861,14 @@ def test_legacy_bare_json_log_reads_back_compatibly(tmp_path):
     assert [km.key for km in broker.read("T", 0)] == ["a", "b", "c"]
 
 
-@pytest.mark.parametrize("scheme", ["file"])
+@pytest.mark.parametrize("scheme", ["file", "tcp"])
 def test_corrupt_log_bitflip_and_torn_tail_exactly_once(tmp_path, scheme):
     """THE corrupt-log fixture: flip a byte inside a
     committed record and truncate mid-record at the tail. The consumer
     skips exactly the flipped record (counted), torn-tail recovery
     truncates the partial (counted), offsets stay consistent, and a
     resume-after-restart from committed offsets reads everything else
-    exactly once (the file: half; tcp: waits for the netbroker)."""
+    exactly once — on both file: and tcp:."""
     root = tmp_path / "broker"
     seed = tp.get_broker(f"file:{root}")
     seed.create_topic("T")
@@ -755,39 +885,49 @@ def test_corrupt_log_bitflip_and_torn_tail_exactly_once(tmp_path, scheme):
     with open(log, "ab") as f:
         f.write(partial)
 
-    assert scheme == "file"
-    broker = tp.get_broker(f"file:{root}")  # fresh instance: recovery runs
+    server = None
+    if scheme == "tcp":
+        server = netbroker.NetBrokerServer(
+            str(root), host="127.0.0.1", port=0
+        ).start_background()
+        broker = tp.get_broker(f"tcp://127.0.0.1:{server.port}")
+    else:
+        broker = tp.get_broker(f"file:{root}")  # fresh instance: recovery runs
     torn_before = _metric("oryx_broker_torn_tail_records_total", 'topic="T"')
     corrupt_before = _metric("oryx_corrupt_records_total", 'tier="transport"')
-    # size sees 6 committed records (torn tail truncated, flipped one
-    # still occupying its offset)
-    assert broker.size("T") == 6
-    assert _metric(
-        "oryx_broker_torn_tail_records_total", 'topic="T"'
-    ) == torn_before + 1
-    # recovery leaves flight-recorder evidence (byte count included)
-    from oryx_tpu_torch.common import blackbox
+    try:
+        # size sees 6 committed records (torn tail truncated, flipped one
+        # still occupying its offset)
+        assert broker.size("T") == 6
+        assert _metric(
+            "oryx_broker_torn_tail_records_total", 'topic="T"'
+        ) == torn_before + 1
+        # recovery leaves flight-recorder evidence (byte count included)
+        from oryx_tpu_torch.common import blackbox
 
-    torn_events = [e for e in blackbox.events()
-                   if e["kind"] == "broker.torn_tail" and e["topic"] == "T"]
-    assert torn_events and torn_events[-1]["truncated_bytes"] > 0
-    it = tp.ConsumeDataIterator(broker, "T", "earliest")
-    got = [next(it).key for _ in range(5)]
-    assert got == ["0", "1", "3", "4", "5"]  # exactly the bad one skipped
-    assert it.offset == 6  # offsets aligned across the corrupt slot
-    assert _metric(
-        "oryx_corrupt_records_total", 'tier="transport"'
-    ) == corrupt_before + 1
-    # commit after processing record "3" (position 4), restart: the
-    # resumed consumer re-reads exactly the rest, once
-    broker.set_offset("g", "T", 4)
-    it.close()
-    it2 = tp.ConsumeDataIterator(broker, "T", "committed", group="g")
-    assert [next(it2).key for _ in range(2)] == ["4", "5"]
-    it2.close()
-    # the recovered log is healthy: appends land and read back
-    broker.append("T", "post", "alive")
-    assert [km.key for km in broker.read("T", 6)] == ["post"]
+        torn_events = [e for e in blackbox.events()
+                       if e["kind"] == "broker.torn_tail" and e["topic"] == "T"]
+        assert torn_events and torn_events[-1]["truncated_bytes"] > 0
+        it = tp.ConsumeDataIterator(broker, "T", "earliest")
+        got = [next(it).key for _ in range(5)]
+        assert got == ["0", "1", "3", "4", "5"]  # exactly the bad one skipped
+        assert it.offset == 6  # offsets aligned across the corrupt slot
+        assert _metric(
+            "oryx_corrupt_records_total", 'tier="transport"'
+        ) == corrupt_before + 1
+        # commit after processing record "3" (position 4), restart: the
+        # resumed consumer re-reads exactly the rest, once
+        broker.set_offset("g", "T", 4)
+        it.close()
+        it2 = tp.ConsumeDataIterator(broker, "T", "committed", group="g")
+        assert [next(it2).key for _ in range(2)] == ["4", "5"]
+        it2.close()
+        # the recovered log is healthy: appends land and read back
+        broker.append("T", "post", "alive")
+        assert [km.key for km in broker.read("T", 6)] == ["post"]
+    finally:
+        if server is not None:
+            server.close()
 
 
 def test_fsync_policy_counters_and_validation(tmp_path):
@@ -965,9 +1105,17 @@ def test_torn_tail_and_bitflip_recovered_alike(tmp_path):
 
 def test_memory_brokers_are_separate_and_tcp_waits(tmp_path):
     """Each package keeps its own memory: registry (a parity test never
-    shares one), and the port refuses a tcp:// URL typed."""
+    shares one), and a tcp:// URL resolves to one cached port client per
+    URL, which reset_tcp_clients drops (the next get_broker builds anew)."""
     tp.get_broker("memory:").create_topic("T")
     assert not ref_tp.get_broker("memory:").topic_exists("T")
-    with pytest.raises(tp.TopicException, match="not ported"):
-        tp.get_broker("tcp://127.0.0.1:1")
-    tp.reset_tcp_clients()  # a no-op, kept for the reference's API
+    url = "tcp://127.0.0.1:1"
+    client = tp.get_broker(url)
+    assert isinstance(client, netbroker.NetBrokerClient)
+    assert (client.host, client.port) == ("127.0.0.1", 1)
+    assert tp.get_broker(url) is client
+    assert tp.get_broker("tcp://127.0.0.1:2") is not client
+    tp.reset_tcp_clients()
+    assert tp.get_broker(url) is not client
+    with pytest.raises(tp.TopicException, match="bad tcp broker url"):
+        tp.get_broker("tcp://nohost")
