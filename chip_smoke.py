@@ -54,6 +54,35 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            at batch 1, 16 and 256, top-10, checked against an exact scan;
            and ``y_snapshot()`` with nothing changed, 1,000 calls timed on
            the host (median and p90 microseconds);
+  serving_quant
+           the serving representations, the launch counters set to 0
+           first (no kernel may launch): on the flagship's items (the
+           models share its store) int8, bfloat16 and float32 with LSH at
+           0.3, ``top_n_batch`` at batch 1, 16 and 256 timed beside
+           float32 on the host, overlap with an exact float64 scan, every
+           int8 score within 1e-4 relative of its float64 dot, every LSH
+           answer in a candidate bucket of its query, the int8 snapshot's
+           bytes n·k + 4n; the device programs alone (int8 scan, bf16 scan,
+           LSH-masked scan) by CUDA events at batch 16 and 256 beside the
+           float32 scan and each one's bound; the int8 scan's transient
+           (``max_memory_allocated`` over a scan, reset before, less what
+           was allocated before) below one float32 copy of the slab. Then
+           the IVF index at ``bench.py``'s shape: 2,097,152 × 50 items
+           around 2,048 planted centres, 2,048 cells, 8 probes, beside
+           flat int8 on the same store: the build split into quantize /
+           fit / assign / land, cell width, skew, device bytes; recall@10
+           of 32 queries against an exact float64 scan (>= 0.99, both);
+           host qps at batch 16 and 256; the probe and the cell scan alone;
+           a burst of 10,000 changed and 1,000 new rows whose incremental
+           snapshot must hold the same cell tables, bit for bit, as a
+           rebuild with the same centroids (both timed). Its HTTP half runs
+           in the loop (``serving_quant_http`` line): a ``ServingLayer`` on
+           the loop's update topic with ``device-dtype = int8``, the index,
+           ``sample-rate = 0.3`` and this script's
+           ``SmokeRescorerProvider``; 1,000 users' ``/recommend`` with
+           ``rescorerParams`` against the layer's own model's ``top_n``
+           with the same hooks, 100 ``/similarity`` against its
+           ``top_n_cosine``; no 5xx, no kernel launch;
   kmeans_kernel
            the Lloyd-sweep kernel against its plain version on 1,000,000 ×
            64 standard-normal points with K = 256 (near ties allowed), on
@@ -244,7 +273,9 @@ Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the loop's batch half
 ``lambda_loop.batch``, in the k-means generation, in the loop's speed
 half ``lambda_loop.speed``, in the HTTP app's path ``serving_http``,
-where the last two must be all 0, and in the deployment's batch process
+where the last two must be all 0, in the serving representations'
+phase and its HTTP half ``serving_quant`` (all 0), and in the deployment's
+batch process
 ``deployment``, read from its bundle's ``oryx_device_calls_total`` and
 equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too;
 ``path_checks``:
@@ -274,6 +305,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -290,7 +322,10 @@ from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
 from oryx_tpu_torch.models.als import data as als_data
 from oryx_tpu_torch.models.als import evaluate
 from oryx_tpu_torch.models.als import pmml_codec as als_codec
+from oryx_tpu_torch.models.als import ivf as ivf_mod
+from oryx_tpu_torch.models.als import serving as serving_mod
 from oryx_tpu_torch.models.als import train as tr
+from oryx_tpu_torch.models.als.rescorer import Rescorer, RescorerProvider
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
 from oryx_tpu_torch.models.kmeans import pmml_codec
 from oryx_tpu_torch.models.kmeans import train as kmtrain
@@ -377,6 +412,16 @@ HTTP_USERS, HTTP_INGEST_LINES, HTTP_TOUCHED = 1_000, 1_000, 100
 HTTP_LOAD = ((1, 400), (16, 1_500), (64, 3_000), (256, 3_000))
 HTTP_REL = 1e-5
 HTTP_KMEANS_QUERIES, HTTP_KMEANS_ADDS = 1_000, 100
+
+# the serving representations: LSH at the reference baseline's rate
+# (bench.py:41); the IVF index at bench.py's shape (2,048 planted centres x
+# 1,024 items, 50 features, 2,048 cells, 8 probes), 32 recall queries, a
+# burst of 10,000 changed and 1,000 new rows; over HTTP, HTTP_USERS users'
+# /recommend with a rescorer and 100 /similarity
+QUANT_LSH_RATE = 0.3
+IVF_CENTERS, IVF_N, IVF_PROBES = 2_048, 2_048 * 1_024, 8
+IVF_RECALL_QUERIES, IVF_BURST_CHANGED, IVF_BURST_NEW = 32, 10_000, 1_000
+HTTP_QUANT_SIMILARITY = 100
 
 # the deployment: two serving replicas; a 2,500-line microbatch over tcp
 # (cut from the loop's 2 x 10,000: each send, and each of the ~2 UPs a
@@ -941,7 +986,8 @@ def flagship_model(rng):
 def serve_flagship(rng):
     """top_n_batch at 1M items × 50 features, seeded factors; and the host
     microseconds of ``y_snapshot()`` with nothing changed (1,000 calls), the
-    per-query cost of taking the served matrix."""
+    per-query cost of taking the served matrix. Returns the record and the
+    model with its items (``serving_quant`` serves them again)."""
     t0 = time.perf_counter()
     model, y, ids = flagship_model(rng)
     model.y_snapshot()
@@ -971,6 +1017,422 @@ def serve_flagship(rng):
         out[f"b{batch_size}"] = {"median_s": med, "qps": batch_size / med,
                                  "p90_s": float(np.percentile(times, 90)),
                                  "overlap": ov}
+    return out, model, y, ids
+
+
+# -- the serving representations ---------------------------------------------
+
+
+def host_top_n_s(model, qs, reps: int) -> float:
+    """Median host seconds of ``model.top_n_batch(qs, 10)`` (after one
+    untimed call)."""
+    model.top_n_batch(qs, 10)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        model.top_n_batch(qs, 10)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def scan_program(name: str, fn, nbytes: float, flops: float, f32: dict,
+                 dtype=torch.float32) -> dict:
+    """One device program of a serving scan timed by CUDA events (``INNER``
+    calls a pair), its bound (the bytes it must read, or ``flops`` at the
+    peak of ``dtype``'s products), beside ``f32``: the float32 flat scan at
+    the same shape."""
+    ms = time_ms(fn, reps=11, warmup=2, inner=INNER)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    return {"program": name, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "f32_flat_ms": f32["ms"],
+            "f32_flat_bound_ms": f32["bound_ms"]}
+
+
+def f32_flat_scan(mat, qs, top: int) -> dict:
+    """The float32 flat scan (one product, ``torch.topk``) timed as
+    :func:`scan_program` times, with its byte bound."""
+    n, k = mat.shape
+    return {"ms": time_ms(lambda: torch.topk(qs @ mat.T, top, dim=1), reps=11,
+                          warmup=2, inner=INNER),
+            "bound_ms": bound(4 * n * k, 2.0 * len(qs) * n * k, torch.float32)[0]}
+
+
+def exact_top10(y64: np.ndarray, qs: np.ndarray) -> list:
+    """Each query's exact top-10 rows by a float64 scan on the host."""
+    out = []
+    for a in range(0, len(qs), 32):
+        scores = y64 @ qs[a:a + 32].astype(np.float64).T
+        out.extend(set(np.argpartition(-scores[:, b], 10)[:10].tolist())
+                   for b in range(scores.shape[1]))
+    return out
+
+
+def int8_scan_memory(snap, qs_host, r: int) -> dict:
+    """Device bytes the int8 candidate scan allocates beyond what was
+    allocated before it (``torch.cuda.max_memory_allocated``, reset just
+    before), against one float32 copy of the slab."""
+    qs = torch.as_tensor(qs_host, device=snap.qmat.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    serving_mod._quant_candidates(snap, qs, r)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    f32_copy = snap.n * snap.qmat.shape[1] * 4
+    out = {"batch": len(qs_host), "allocated_before": base, "peak": peak,
+           "transient": peak - base, "f32_slab_bytes": f32_copy,
+           "chunk_rows": serving_mod._scan_rows(len(qs_host), snap.qmat.shape[1])}
+    check(out["transient"] < f32_copy,
+          f"serving_quant: the int8 scan took {out['transient']} bytes, not "
+          f"below one float32 copy of the slab ({f32_copy})")
+    return out
+
+
+def check_int8_scores(results, qs, y, ids_index, label: str) -> float:
+    """Every returned score equals its float64 dot within 1e-4 relative;
+    returns the largest relative error."""
+    worst = 0.0
+    for b, res in enumerate(results):
+        for id_, score in res:
+            exact = float(y[ids_index[id_]].astype(np.float64) @ qs[b].astype(np.float64))
+            worst = max(worst, abs(score - exact) / max(abs(exact), 1e-12))
+    check(worst <= 1e-4, f"{label}: a score is {worst} from its float64 dot")
+    return worst
+
+
+def check_lsh_candidates(model, results, qs) -> int:
+    """Every returned item lies in a candidate bucket of its query."""
+    lsh = model.lsh
+    n = 0
+    for b, res in enumerate(results):
+        cands = set(lsh.get_candidate_indices(qs[b]).tolist())
+        rows = np.stack([model.y.get_vector(i) for i, _ in res])
+        check(set(lsh.assign_buckets(rows).tolist()) <= cands,
+              "serving_quant: an LSH answer lies outside its query's buckets")
+        n += len(res)
+    return n
+
+
+def flat_representations(flagship, y, ids, rng) -> dict:
+    """int8, bfloat16 and float32 + LSH at 0.3 on the flagship's 1M × 50
+    items (the models share its store): ``top_n_batch`` host seconds at
+    batch 1, 16 and 256 beside float32 with their checks, the device
+    programs alone at batch 16 and 256, and the int8 scan's transient."""
+    dev = flagship.device
+    models = {"float32": flagship}
+    for label, kw in (("int8", {"device_dtype": "int8"}),
+                      ("bfloat16", {"device_dtype": "bfloat16"}),
+                      ("lsh_0.3", {"sample_rate": QUANT_LSH_RATE})):
+        m = ALSServingModel(FEATURES, True, device=dev, **kw)
+        m.y = flagship.y  # the same store: the same ids and rows
+        models[label] = m
+    n, k = len(ids), FEATURES
+    out: dict = {"items": n, "features": k, "lsh_rate": QUANT_LSH_RATE,
+                 "models": {}}
+    snaps = {}
+    for label, m in models.items():
+        t0 = time.perf_counter()
+        snaps[label] = snap = m.y_snapshot()
+        torch.cuda.synchronize()
+        rec = {"snapshot_s": time.perf_counter() - t0,
+               "snapshot_type": type(snap).__name__,
+               "device_bytes": snap.device_nbytes()}
+        if label == "int8":
+            rec["quantized_nbytes"] = snap.quantized_nbytes()
+            want = n * k + 4 * n
+            check(rec["quantized_nbytes"] == want,
+                  f"serving_quant: int8 holds {rec['quantized_nbytes']} bytes, not {want}")
+        out["models"][label] = rec
+    ids_index = {id_: j for j, id_ in enumerate(ids)}
+    y64 = y.astype(np.float64)
+    for batch_size, reps in ((1, 30), (16, 20), (256, 10)):
+        qs = rng.standard_normal((batch_size, k), dtype=np.float32)
+        truth = exact_top10(y64, qs)
+        for label, m in models.items():
+            res = m.top_n_batch(qs, 10)
+            check(all(len(r) == 10 for r in res), f"serving_quant {label}: short list")
+            ov = sum(len(truth[b] & {ids_index[i] for i, _ in r})
+                     for b, r in enumerate(res)) / (10 * batch_size)
+            med = host_top_n_s(m, qs, reps)
+            entry = {"median_s": med, "qps": batch_size / med, "overlap": ov}
+            if label == "int8":
+                entry["max_rel_err"] = check_int8_scores(res, qs, y, ids_index,
+                                                         f"int8 b{batch_size}")
+                check(ov >= 0.99, f"serving_quant int8 b{batch_size}: overlap {ov}")
+            elif label == "lsh_0.3":
+                entry["answers_in_buckets"] = check_lsh_candidates(m, res, qs)
+            else:
+                check(ov >= 0.95, f"serving_quant {label} b{batch_size}: overlap {ov}")
+            out["models"][label][f"b{batch_size}"] = entry
+    del y64
+    # the device programs alone, at batch 16 and 256
+    f32, q8, b16, lsh_snap = (snaps[x] for x in ("float32", "int8", "bfloat16",
+                                                 "lsh_0.3"))
+    lsh_m = models["lsh_0.3"]
+    programs = []
+    for b in (16, 256):
+        qs_host = rng.standard_normal((b, k), dtype=np.float32)
+        qs = torch.as_tensor(qs_host, device=dev)
+        top = 16  # top_n_batch's k at how_many = 10
+        r = serving_mod._round_up_pow2(max(int(4.0 * 10), 16))  # rescore width
+        flops = 2.0 * b * n * k
+        base = f32_flat_scan(f32.mat, qs, top)
+        programs.append({"batch": b, "r": r, **scan_program(
+            "int8 scan", lambda: serving_mod._quant_candidates(q8, qs, r),
+            n * k + 4 * n, flops, base)})
+        programs.append({"batch": b, **scan_program(
+            "bf16 scan", lambda: torch.topk(serving_mod._score(qs, b16.score_mat),
+                                            top, dim=1),
+            2 * n * k, flops, base, torch.bfloat16)})
+        lut = lsh_m._build_lut(qs_host)
+        programs.append({"batch": b, "lsh_rate": QUANT_LSH_RATE, **scan_program(
+            "LSH-masked scan", lambda: torch.topk(serving_mod._masked_scores(
+                lsh_snap.mat, qs, lut[:, lsh_snap.buckets]), 64, dim=1),
+            4 * n * k + 4 * n + lut.numel(), flops, base)})
+    out["programs"] = programs
+    out["int8_scan_memory"] = [int8_scan_memory(q8, rng.standard_normal(
+        (b, k), dtype=np.float32), 64) for b in (1, 256)]
+    return out
+
+
+def planted_catalog(rng):
+    """``bench.py``'s IVF catalog (``oryx_tpu``'s index section): 2,048
+    centres (standard normal × 2), 1,024 items around each (noise 0.25)."""
+    centers = rng.standard_normal((IVF_CENTERS, FEATURES), dtype=np.float32) * 2.0
+    items = np.repeat(centers, IVF_N // IVF_CENTERS, axis=0)
+    items += rng.standard_normal(items.shape, dtype=np.float32) * 0.25
+    return centers, items, [f"i{j}" for j in range(len(items))]
+
+
+def recall_at_10(model, qs, exact_top) -> float:
+    hits = 0
+    for b in range(len(qs)):
+        got = {int(i[1:]) for i, _ in model.top_n(qs[b], 10)}
+        hits += len(got & exact_top[b])
+    return hits / (10 * len(qs))
+
+
+def ivf_phase(rng, device=None) -> dict:
+    """The IVF index at ``bench.py``'s shape (2,097,152 × 50, 2,048 cells,
+    8 probes) beside flat int8 on the same store: build split by step,
+    recall@10 of 32 queries against an exact float64 scan (>= 0.99 both),
+    qps at batch 16 and 256, the probe and the cell scan alone, and a
+    burst of changed and new rows whose incremental snapshot must hold the
+    same cell tables, bit for bit, as a rebuild with the same centroids."""
+    dev = resolve(device)
+    centers, items, ids = planted_catalog(rng)
+    n, k = items.shape
+    t0 = time.perf_counter()
+    m = ALSServingModel(k, True, device_dtype="int8", index_enabled=True,
+                        index_cells=IVF_CENTERS, index_probes=IVF_PROBES, device=dev)
+    m.bulk_load_items(ids, items)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap = m.y_snapshot()
+    build_s = time.perf_counter() - t0
+    check(isinstance(snap, ivf_mod.IVFSnapshot), "ivf: not an IVF snapshot")
+    flat = ALSServingModel(k, True, device_dtype="int8", device=dev)
+    flat.y = m.y  # the same store: measure the index, not a second slab
+    t0 = time.perf_counter()
+    flat_snap = flat.y_snapshot()
+    flat_build_s = time.perf_counter() - t0
+    out = {"items": n, "features": k, "cells": snap.n_cells, "probes": snap.probes,
+           "cell_width": snap.cell_width, "skew": snap.skew(), "load_s": load_s,
+           "build_s": build_s, "build": snap.build_timings,
+           "device_bytes": snap.device_nbytes(),
+           "quantized_bytes": snap.quantized_nbytes(),
+           "flat_int8": {"build_s": flat_build_s,
+                         "device_bytes": flat_snap.device_nbytes()}}
+    # recall against an exact float64 scan
+    qs = (centers[rng.integers(0, IVF_CENTERS, IVF_RECALL_QUERIES)]
+          + rng.standard_normal((IVF_RECALL_QUERIES, k), dtype=np.float32) * 0.25)
+    exact_top = exact_top10(items.astype(np.float64), qs)
+    out["recall_at_10"] = recall_at_10(m, qs, exact_top)
+    out["flat_int8"]["recall_at_10"] = recall_at_10(flat, qs, exact_top)
+    check(out["recall_at_10"] >= 0.99, f"ivf: recall@10 {out['recall_at_10']} < 0.99")
+    check(out["flat_int8"]["recall_at_10"] >= 0.99,
+          f"ivf: flat int8 recall@10 {out['flat_int8']['recall_at_10']} < 0.99")
+    # qps beside flat int8, and the device programs alone
+    queries = (centers[rng.integers(0, IVF_CENTERS, 256)]
+               + rng.standard_normal((256, k), dtype=np.float32) * 0.25)
+    mat32 = torch.as_tensor(items, device=dev)
+    programs = []
+    for b, reps in ((16, 20), (256, 10)):
+        ivf_s = host_top_n_s(m, queries[:b], reps)
+        flat_s = host_top_n_s(flat, queries[:b], reps)
+        out[f"b{b}"] = {"ivf_qps": b / ivf_s, "flat_int8_qps": b / flat_s,
+                        "ivf_median_s": ivf_s, "flat_int8_median_s": flat_s}
+        qs_t = torch.as_tensor(queries[:b], device=dev)
+        cells = ivf_mod._probe_cells(snap.centroids, qs_t, snap.probes)
+        r = ivf_mod._candidate_width(m, snap, snap.probes, 10)
+        distinct = int(torch.unique(cells).numel())
+        base = f32_flat_scan(mat32, qs_t, 16)
+        programs.append({"batch": b, **scan_program(
+            "IVF probe", lambda: ivf_mod._probe_cells(snap.centroids, qs_t, snap.probes),
+            snap.n_cells * k * 4, 2.0 * b * snap.n_cells * k, base)})
+        # the probed cells' int8 rows, scales and positions, each read once
+        programs.append({"batch": b, "distinct_cells": distinct, "r": r, **scan_program(
+            "IVF scan", lambda: ivf_mod._ivf_candidates(
+                snap.cell_pos, snap.cell_q, snap.cell_scale, qs_t, cells, None, r),
+            distinct * snap.cell_width * (k + 4 + 4),
+            2.0 * b * snap.probes * snap.cell_width * k, base)})
+    out["programs"] = programs
+    del mat32
+    # a burst: changed rows moved to other centres, new rows
+    t0 = time.perf_counter()
+    moved = rng.choice(n, IVF_BURST_CHANGED, replace=False)
+    targets = centers[rng.integers(0, IVF_CENTERS, IVF_BURST_CHANGED)]
+    for j, tgt in zip(moved.tolist(), targets):
+        m.set_item_vector(ids[j], tgt + rng.standard_normal(k, dtype=np.float32) * 0.25)
+    for j in range(IVF_BURST_NEW):
+        m.set_item_vector(f"new{j}", centers[j % IVF_CENTERS]
+                          + rng.standard_normal(k, dtype=np.float32) * 0.25)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s1 = m.y_snapshot()
+    torch.cuda.synchronize()
+    incremental_s = time.perf_counter() - t0
+    check(s1.centroids_np is snap.centroids_np and s1.n == n + IVF_BURST_NEW,
+          "ivf: the burst did not take the incremental path")
+    t0 = time.perf_counter()
+    ids2, host, version, view = m.y.host_matrix()
+    s2 = ivf_mod.IVFSnapshot.build(ids2, host, version, None, view,
+                                   centroids=s1.centroids_np,
+                                   cell_width=s1.cell_width, probes=s1.probes,
+                                   device=dev)
+    rebuild_s = time.perf_counter() - t0
+    same = {name: bool(torch.equal(getattr(s1, name), getattr(s2, name)))
+            for name in ("cell_pos", "cell_q", "cell_scale", "cell_norms")}
+    same["cell_len"] = bool((s1.cell_len == s2.cell_len).all())
+    check(all(same.values()), f"ivf: incremental cells differ from a rebuild: {same}")
+    out["burst"] = {"changed": IVF_BURST_CHANGED, "new": IVF_BURST_NEW,
+                    "write_s": write_s, "incremental_s": incremental_s,
+                    "rebuild_s": rebuild_s, "rebuild": s2.build_timings,
+                    "equal_to_rebuild": same, "skew_after": s1.skew()}
+    return out
+
+
+def serving_quant_phase(flagship, y, ids, rng, device=None) -> dict:
+    """The serving representations on the card (see the module docstring):
+    flat int8, bfloat16 and LSH on the flagship's items, then the IVF
+    index at ``bench.py``'s shape. The launch counters are set to 0 first:
+    no kernel may launch."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    out = {"flat": flat_representations(flagship, y, ids, rng)}
+    torch.cuda.empty_cache()
+    out["ivf"] = ivf_phase(rng, device)
+    torch.cuda.empty_cache()
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"serving_quant: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+class SmokeRescorer(Rescorer):
+    """Filters the items whose id hashes to 0 modulo ``mod`` and lifts the
+    others' scores by up to 6% (so the order changes)."""
+
+    def __init__(self, mod: int):
+        self.mod = mod
+
+    def rescore(self, id_, score):
+        h = zlib.crc32(id_.encode())
+        return float("nan") if h % self.mod == 0 else score * (1.0 + 0.01 * (h % 7))
+
+
+class SmokeRescorerProvider(RescorerProvider):
+    """The smoke's ``oryx.als.rescorer-provider-class``: ``/recommend``'s
+    ``rescorerParams`` is the filter's modulus."""
+
+    def __init__(self, config=None):
+        pass
+
+    def get_recommend_rescorer(self, user_ids, args):
+        return SmokeRescorer(int(args[0]) if args else 5)
+
+
+def serving_quant_http(loop: "LambdaLoop", rng, device=None) -> dict:
+    """A ``ServingLayer`` on the loop's update topic serving from int8 with
+    the IVF index and LSH at 0.3, with ``SmokeRescorerProvider``: 1,000
+    users' ``/recommend`` with ``rescorerParams`` against the layer's own
+    model's ``top_n`` with the same hooks, and ``/similarity`` against its
+    ``top_n_cosine``; no 5xx. No kernel may launch."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    total = loop.update_size()
+    conf = loop.conf.with_values({
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        "oryx.serving.device-dtype": "int8",
+        "oryx.serving.index.enabled": True,
+        "oryx.als.sample-rate": QUANT_LSH_RATE,
+        "oryx.als.rescorer-provider-class": "chip_smoke.SmokeRescorerProvider",
+    })
+    out: dict = {"update_messages": total}
+    layer, port, t_start, threads = start_layer(conf, "serving_quant_http", device)
+    client = HttpClient(port)
+    statuses: dict = {}
+    try:
+        wait_until(lambda: client.request("GET", "/ready")[0] == 200, 300,
+                   "serving_quant_http: /ready", layers=loop.layers, poll=0.01)
+        t_current = wait_until(lambda: applied_messages(layer) >= total, 300,
+                               "serving_quant_http: the replay",
+                               layers=loop.layers, poll=0.01)
+        out["replay_to_current_s"] = t_current - t_start
+        model = layer.manager.get_model()
+        snap = model.y_snapshot()
+        out["snapshot"] = {"type": type(snap).__name__, "n": snap.n,
+                           "cells": snap.n_cells, "cell_width": snap.cell_width,
+                           "lsh_buckets": snap.cell_buckets is not None,
+                           "device": str(snap.cell_q.device)}
+        check(isinstance(snap, ivf_mod.IVFSnapshot) and snap.cell_buckets is not None
+              and snap.cell_q.device.type == layer.device.type,
+              f"serving_quant_http: the layer serves {out['snapshot']}")
+        provider = layer.manager.rescorer_provider
+        check(isinstance(provider, RescorerProvider), "serving_quant_http: no provider")
+        users = model.all_user_ids()
+        sample = [users[j] for j in rng.choice(len(users), HTTP_USERS, replace=False)]
+        t0 = time.perf_counter()
+        for j, u in enumerate(sample):
+            mod = 3 + j % 5
+            rescorer = provider.get_recommend_rescorer([u], [str(mod)])
+            want = model.top_n(model.get_user_vector(u), 10, 0,
+                               lambda i, r=rescorer: not r.is_filtered(i),
+                               rescorer.rescore, excluded=model.get_known_items(u))
+            path = f"/recommend/{u}?howMany=10&rescorerParams={mod}"
+            status, _, data = client.request("GET", path)
+            statuses[status] = statuses.get(status, 0) + 1
+            check(status == 200, f"serving_quant_http: GET {path}: {status}")
+            got = json.loads(data)
+            check(all(zlib.crc32(e["id"].encode()) % mod for e in got),
+                  f"serving_quant_http: {path} returned a filtered item")
+            check_same_top_n(got, want, f"serving_quant_http {path}")
+        out["recommend_checked"] = {"users": len(sample),
+                                    "seconds": time.perf_counter() - t0}
+        items = model.all_item_ids()
+        for _ in range(HTTP_QUANT_SIMILARITY):
+            i1, i2 = (items[j] for j in rng.choice(len(items), 2, replace=False))
+            qs = np.stack([model.get_item_vector(i1), model.get_item_vector(i2)])
+            path = f"/similarity/{i1}/{i2}"
+            status, _, data = client.request("GET", path)
+            statuses[status] = statuses.get(status, 0) + 1
+            check(status == 200, f"serving_quant_http: GET {path}: {status}")
+            check_same_top_n(json.loads(data), model.top_n_cosine(
+                qs, 10, 0, lambda i: i not in {i1, i2}), f"serving_quant_http {path}")
+        out["similarity_checked"] = HTTP_QUANT_SIMILARITY
+    finally:
+        client.close()
+        closed = close_layer(layer, port, "serving_quant_http", threads)
+    out["statuses"] = statuses
+    check(not any(s >= 500 for s in statuses), f"serving_quant_http: {statuses}")
+    out.update(closed)
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"serving_quant_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1270,8 +1732,8 @@ def check_served_top_n(model, touched, rng, label) -> dict:
     rest = sorted(set(all_users) - set(users))
     users += [rest[j] for j in rng.choice(len(rest), SPEED_SAMPLES - half, replace=False)]
     known = {u: model.get_known_items(u) for u in users}
-    x_ids, x, _ = model.x.host_matrix()
-    y_ids, y, _ = model.y.host_matrix()
+    x_ids, x, _, _ = model.x.host_matrix()
+    y_ids, y, _, _ = model.y.host_matrix()
     fresh = state.serving_model(x, y, x_ids, y_ids, known_items=known)
     qs = np.stack([model.get_user_vector(u) for u in users])
     excluded = [known[u] for u in users]
@@ -1296,7 +1758,7 @@ def check_fold_in_api(model, rng, label) -> dict:
     1e-4); ``top_n_cosine`` for 16 item sets against an exact float64 scan
     (overlap >= 0.99)."""
     store = model.y
-    y_ids, y, version = store.host_matrix()
+    y_ids, y, version, _ = store.host_matrix()
     check(store._cached_version == version,
           f"{label}: the device matrix is not current for get_vtv")
     t0 = time.perf_counter()
@@ -1349,7 +1811,7 @@ def whole_upload_ms(store, dev) -> tuple:
     milliseconds around a synchronise; and the matrix."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids, host, _ = store.host_matrix()
+    ids, host, _, _ = store.host_matrix()
     mat = torch.from_numpy(host).to(dev)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, ids, mat
@@ -1941,8 +2403,8 @@ def loop_speed(loop: LambdaLoop, lines, rng) -> dict:
         settled = loop.settle(300, label)
         if b == 0:
             out["speed_load_s"] = settled["t_speed"] - loop.watch.first_model
-        x_ids, x0, _ = manager.model.x.host_matrix()
-        y_ids, y0, _ = manager.model.y.host_matrix()
+        x_ids, x0, _, _ = manager.model.x.host_matrix()
+        y_ids, y0, _, _ = manager.model.y.host_matrix()
         pre = (({s: i for i, s in enumerate(x_ids)}, x0),
                ({s: i for i, s in enumerate(y_ids)}, y0))
         incremental = model.y.materializations["incremental"]
@@ -2021,6 +2483,7 @@ def lambda_loop_phase(lines, rng) -> dict:
             out = {"batch": loop_generation(loop, lines, rng)}
             out["speed"] = loop_speed(loop, lines, rng)
             out["serving_http"] = serving_http_phase(loop, rng)
+            out["serving_quant_http"] = serving_quant_http(loop, rng)
             check(not loop.speed.stopped, "lambda_loop: the speed layer stopped")
         finally:
             loop.close()
@@ -3509,7 +3972,15 @@ def main() -> int:
     check(n == expected, f"spd_solve_batched: {n} launches of {kernel} on the "
           f"main path, expected {expected}: {als_shape_launches}")
 
-    emit("serve_flagship", **serve_flagship(rng))
+    flagship, flagship_model, flagship_y, flagship_ids = serve_flagship(rng)
+    emit("serve_flagship", **flagship)
+    serving_quant = serving_quant_phase(flagship_model, flagship_y, flagship_ids, rng)
+    del flagship_model, flagship_y, flagship_ids
+    torch.cuda.empty_cache()
+    emit("serving_quant", **serving_quant, gpu=smi, reduced={
+        "flat": "none: the flagship's 1,000,000 x 50 seeded items, bench.py's "
+                "serving shape",
+        "ivf": "none: bench.py's index shape (2,097,152 x 50, 2,048 cells, 8 probes)"})
 
     record, km_entries, km_points, sweep_args = kmeans_kernel_phase(dev, rng)
     # every profiled window in one profiler session, straight after the
@@ -3537,8 +4008,10 @@ def main() -> int:
                  f"({len(loop_lines)} lines), as the deployment's",
         "microbatches": f"2 x {SPEED_MICROBATCH}, cut from 2 x 50000 with the users"}
     serving_http = loop.pop("serving_http")
+    quant_http = loop.pop("serving_quant_http")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
+    emit("serving_quant_http", **quant_http, gpu=smi)
     generation, speed = loop["batch"], loop["speed"]
     # the same loop as a deployment of CLI processes over tcp:
     deployment = deployment_phase(loop_lines, rng, speed)
@@ -3580,6 +4053,10 @@ def main() -> int:
                          for w in serving_http["launches"]},
         # read from the batch process's oryx_device_calls_total
         "deployment": {w: deployment["launches"][w] for w in ALS_WRAPPERS},
+        # the serving representations (in process and over HTTP) launch none
+        "serving_quant": {w: serving_quant["launches"][w]
+                          + quant_http["launches"][w]
+                          for w in serving_quant["launches"]},
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too

@@ -1,16 +1,37 @@
 """ALS serving model: device-resident item factors answering top-N queries.
 
 The port of the reference's ``ALSServingModel`` and
-``ALSServingModelManager`` (``models/als/serving.py``) for float32 scoring on
-one device: Y lives on the device as one dense float32 matrix that the host
-store keeps current (``FeatureVectorStore.materialize``: a speed
-microbatch's point updates reach it as one scatter and one append, a model
-handoff as one whole upload), and a batch of queries is answered by ONE
-``scores = Q @ Yᵀ`` product, known-item masking, and ``torch.topk``. The
-reference leaves this scan to XLA outside any Pallas kernel (matmul +
-``approx_max_k``), so it is plain torch here too; the float32 product runs
-without TF32. ``device_dtype="auto"`` resolves to float32, the reference's
-own rule off a TPU.
+``ALSServingModelManager`` (``models/als/serving.py``) on one device, with
+every item representation the reference serves from
+(``oryx.serving.device-dtype``):
+
+* ``float32`` (and ``auto``, the reference's own rule off a TPU): Y lives on
+  the device as one dense float32 matrix that the host store keeps current
+  (``FeatureVectorStore.materialize``: a speed microbatch's point updates
+  reach it as one scatter and one append, a model handoff as one whole
+  upload), and a batch of queries is answered by ONE ``scores = Q @ Yᵀ``
+  product, masking, and ``torch.topk``; the float32 product runs without
+  TF32;
+* ``bfloat16``: a bfloat16 scoring copy beside the float32 matrix (which
+  keeps the exact dots and norms), scored with float32 output
+  (``torch.mm(..., out_dtype=torch.float32)`` on the card; on the CPU the
+  bf16-rounded operands in a float32 product), as the reference's
+  ``preferred_element_type=float32``;
+* ``int8`` (:class:`_QuantSnapshot`): only a per-row-scaled int8 slab, its
+  scales and exact norms on the device. A scan converts the slab to float32
+  one row chunk at a time (:func:`_scan_rows` bounds the transient; no
+  float32 copy of the slab is ever made or kept) and keeps a running top-r
+  over the chunks; the top ``rescore-factor × how_many`` candidates are
+  rescored exactly in float32 on the host from the store's pinned slab
+  view before the final cut. With ``oryx.serving.index.enabled`` the int8
+  rows live in the IVF cells of :mod:`~oryx_tpu_torch.models.als.ivf`.
+
+``oryx.als.sample-rate < 1`` masks every representation's scan with LSH
+buckets (:mod:`~oryx_tpu_torch.models.als.lsh`), carried across incremental
+snapshots. The reference leaves all of these scans to XLA outside any
+Pallas kernel (matmul + ``approx_max_k``), so they are plain torch here
+too; ``torch.topk`` is exact where ``approx_max_k`` is exact only off a
+TPU.
 
 The manager consumes the update topic as the reference's does: ``MODEL`` /
 ``MODEL-REF`` with new features builds a new model with its stores
@@ -19,18 +40,19 @@ the new model names or what was written since the last handoff;
 ``UP ["X"|"Y", id, vector(, known items)]`` sets one vector. After each
 message it starts the YᵀY factorisation in the background once the model is
 loaded enough (rate-limited), so the first fold-in request does not wait
-for it.
+for it. It loads the ``oryx.als.rescorer-provider-class`` providers
+(:mod:`~oryx_tpu_torch.models.als.rescorer`) for the resources.
 
 The fold-in API the serving resources call is here too: the YᵀY solver
 (``SolverCache`` over ``y.get_vtv``, host float64 as in the reference),
 ``build_temporary_user_vector``, ``dot_with_items``, the mean-cosine
 ``top_n_cosine`` on the device, and the known-item counts.
 
-Not ported yet: LSH sampling (``sample_rate < 1``), bfloat16 and int8
-scoring copies, the IVF index, sharded serving, the staged double-buffer
-swap (``precompile-batches`` with ``prewarm-swap``), the rescorer, and
-cost/metrics accounting. The manager raises at construction on a setting
-that would need one of them.
+Not ported yet: sharded serving, the staged double-buffer swap
+(``precompile-batches`` with ``prewarm-swap``), and cost/metrics
+accounting (torch compiles nothing per shape, so ``warm_bucket`` runs each
+program once on a zero batch). The manager raises at construction on a
+setting that would need one of them.
 """
 
 from __future__ import annotations
@@ -49,7 +71,10 @@ from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.common.lockutils import RateLimitCheck
 from oryx_tpu_torch.ml.mlupdate import read_pmml_from_update_key_message
 from oryx_tpu_torch.models.als import foldin, pmml_codec
-from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
+from oryx_tpu_torch.models.als import ivf as ivf_mod
+from oryx_tpu_torch.models.als.lsh import LocalitySensitiveHash
+from oryx_tpu_torch.models.als.rescorer import load_rescorer_providers
+from oryx_tpu_torch.models.als.vectors import FeatureVectorStore, SnapshotIndex
 from oryx_tpu_torch.ops.solver import SolverCache
 
 log = logging.getLogger(__name__)
@@ -64,10 +89,28 @@ def _round_up_pow2(n: int) -> int:
 #: same (B, E) shapes).
 _EXCL_PAD_MIN = 8
 
+#: Valid values of ``oryx.serving.device-dtype`` (the reference's):
+#: ``auto`` scores in float32 off a TPU, ``float32`` / ``bfloat16`` force
+#: the scoring copy's dtype, ``int8`` holds only the per-row-scaled slab.
+_DEVICE_DTYPES = ("auto", "float32", "bfloat16", "int8")
+
+#: Device bytes one chunk of a quantized scan may take for its float32
+#: transients (the converted rows and the chunk's scores): the int8 slab
+#: is never converted whole.
+_SCAN_BYTES = 64 << 20
+
 
 def _score(qs: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """(B, n) float32 scores."""
-    return qs @ mat.T
+    """(B, n) float32 scores. A bfloat16 ``mat`` is scored with float32
+    output: on the card one bf16 product with float32 accumulation and
+    output; on the CPU the bf16-rounded operands in a float32 product (the
+    same exact products, summed in float32)."""
+    if mat.dtype != torch.bfloat16:
+        return qs @ mat.T
+    qb = qs.to(torch.bfloat16)
+    if mat.device.type == "cuda":
+        return torch.mm(qb, mat.T, out_dtype=torch.float32)
+    return qb.float() @ mat.float().T
 
 
 def _mask_excluded(scores: torch.Tensor, excl: torch.Tensor) -> torch.Tensor:
@@ -89,70 +132,322 @@ def _mask_excluded(scores: torch.Tensor, excl: torch.Tensor) -> torch.Tensor:
     return scores.scatter_(1, idx, src)
 
 
-def _masked_scores(mat, qs, excl):
+def _masked_scores(mat, qs, valid=None, excl=None):
+    """Scores with the optional masks: ``valid`` (n,) or (B, n) booleans
+    (LSH candidates), ``excl`` the (B, E) exclusions."""
     scores = _score(qs, mat)
+    if valid is not None:
+        scores = torch.where(valid, scores, -math.inf)
     if excl is not None:
         scores = _mask_excluded(scores, excl)
     return scores
 
 
-class _YSnapshot:
-    """Immutable device view of Y: the matrix, its row norms, and its ids.
+# -- quantized (int8) candidate scan ----------------------------------------
+# The int8 scan reads a quarter of float32's bytes per row; its scores only
+# CHOOSE candidates: the final ranking comes from an exact float32 rescore of
+# the top ``rescore-factor × how_many`` rows from the host store's slab.
+
+
+def _quantize_rows(mat: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+    """Per-row symmetric int8 quantization: scale_i = max|row_i| / 127.
+    Zero rows get scale 1 (their dots are exactly 0 either way). Host
+    numpy, a copy of the reference's: the same bytes."""
+    if mat.size == 0:
+        return (np.zeros(mat.shape, dtype=np.int8),
+                np.ones(mat.shape[0], dtype=np.float32))
+    amax = np.max(np.abs(mat), axis=1)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(mat / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _scan_rows(batch: int, k: int) -> int:
+    """Rows per chunk of a quantized scan of ``batch`` queries: the chunk's
+    float32 rows (k floats a row) and its scores (``batch`` a row) within
+    :data:`_SCAN_BYTES`."""
+    return max(1024, _SCAN_BYTES // (4 * (batch + k)))
+
+
+def _quant_chunk_scores(snap, qs, a: int, e: int, lut=None, valid=None,
+                        excl=None) -> torch.Tensor:
+    """(B, e - a) approximate masked scores of rows [a, e): the chunk's
+    int8 rows converted to float32, one float32 product, the per-row scale
+    as one broadcast multiply, then the masks (``lut`` (B, buckets) per
+    query, ``valid`` (n,), ``excl`` (B, E) in snapshot rows). The scale and
+    the masks apply in place: the chunk's transient is its rows and one
+    (B, e - a) score block."""
+    s = (qs @ snap.qmat[a:e].float().T).mul_(snap.qscale[a:e][None, :])
+    if lut is not None:
+        s.masked_fill_(~lut[:, snap.buckets[a:e]], -math.inf)
+    if valid is not None:
+        s.masked_fill_(~valid[a:e][None, :], -math.inf)
+    if excl is not None:
+        s = _mask_excluded(s, excl - a)
+    return s
+
+
+def _quant_masked_scores(snap, qs, valid=None, excl=None) -> torch.Tensor:
+    """(B, n) approximate masked scores over the whole slab, built chunk by
+    chunk (the single-query path keeps them to widen its top-k)."""
+    n = snap.n
+    out = torch.empty((qs.shape[0], n), dtype=torch.float32, device=qs.device)
+    step = _scan_rows(qs.shape[0], qs.shape[1])
+    for a in range(0, n, step):
+        e = min(n, a + step)
+        out[:, a:e] = _quant_chunk_scores(snap, qs, a, e, valid=valid, excl=excl)
+    return out
+
+
+def _quant_candidates(snap, qs, r: int, lut=None, valid=None, excl=None):
+    """Top-``r`` CANDIDATES (approximate scores, snapshot rows) of each
+    query: each row chunk's top-r merged into a running top-r, so the scan's
+    transient stays one chunk's whatever the batch and the catalog."""
+    n = snap.n
+    step = _scan_rows(qs.shape[0], qs.shape[1])
+    best_v = best_i = None
+    for a in range(0, n, step):
+        e = min(n, a + step)
+        s = _quant_chunk_scores(snap, qs, a, e, lut=lut, valid=valid, excl=excl)
+        v, i = torch.topk(s, min(r, e - a), dim=1)
+        i = i + a
+        if best_v is not None:
+            v, j = torch.topk(torch.cat([best_v, v], dim=1), min(r, e), dim=1)
+            i = torch.cat([best_i, i], dim=1).gather(1, j)
+        best_v, best_i = v, i
+    return best_v, best_i
+
+
+def _quant_cosine_scores(snap, qs, q_norms, valid=None) -> torch.Tensor:
+    """(n,) mean-cosine approximate scores off the int8 slab, by row chunk
+    (the norms are the exact float32 ones)."""
+    n = snap.n
+    out = torch.empty(n, dtype=torch.float32, device=qs.device)
+    step = _scan_rows(qs.shape[0], qs.shape[1])
+    for a in range(0, n, step):
+        e = min(n, a + step)
+        sims = (qs @ snap.qmat[a:e].float().T).mul_(snap.qscale[a:e][None, :])
+        sims.div_(torch.clamp(snap.norms[a:e][None, :] * q_norms[:, None],
+                              min=1e-12))
+        out[a:e] = sims.mean(dim=0)
+    if valid is not None:
+        out = torch.where(valid, out, -math.inf)
+    return out
+
+
+class _YSnapshot(SnapshotIndex):
+    """Immutable device view of Y: the float32 matrix, its scoring copy
+    (the matrix itself, or bfloat16), its row norms, LSH buckets, and ids.
 
     ``ids`` is the store's id list of the matrix's order epoch, shared with
     later snapshots of the same epoch: only its first ``n`` entries are this
     snapshot's. ``prev`` + ``delta`` (``FeatureVectorStore.delta_since``)
     build the snapshot after a speed microbatch without an O(n) host step:
-    the id → row map is ``prev``'s, extended for the appended rows. Every
-    lookup goes through :meth:`index_of`, bounded by this snapshot's ``n``,
-    so an older snapshot never names a row it does not hold."""
+    the id → row map is ``prev``'s, extended for the appended rows, and the
+    LSH buckets are hashed again for only the changed and appended rows
+    (new tensors: ``prev``'s are never written)."""
 
     def __init__(self, ids, mat: "torch.Tensor | None",
                  prev: "_YSnapshot | None" = None,
-                 delta: "tuple[np.ndarray, int] | None" = None):
+                 delta: "tuple[np.ndarray, int] | None" = None,
+                 lsh: "LocalitySensitiveHash | None" = None,
+                 device_dtype: str = "auto"):
         self.ids = ids
         self.mat = mat  # (n, k) float32 on the serving device, or None
         self.n = 0 if mat is None else mat.shape[0]
-        if prev is not None and delta is not None:
-            self.id_to_idx = prev.id_to_idx
-            for i in range(prev.n, self.n):
-                self.id_to_idx[ids[i]] = i
-        else:
-            self.id_to_idx = {ids[i]: i for i in range(self.n)}
-        self.norms = (None if mat is None
-                      else torch.linalg.vector_norm(mat, dim=1))
+        incremental = prev is not None and delta is not None
+        self._index_ids(prev if incremental else None)
+        self.norms = self.score_mat = self.buckets = None
+        if mat is None:
+            return
+        self.norms = torch.linalg.vector_norm(mat, dim=1)
+        self.score_mat = (mat.to(torch.bfloat16) if device_dtype == "bfloat16"
+                          else mat)
+        if lsh is not None and lsh.num_hashes:
+            dev = mat.device
+            if incremental and prev.buckets is not None:
+                buckets = prev.buckets
+                changed, n_new = delta
+                if len(changed):
+                    ch = torch.as_tensor(changed, dtype=torch.int64, device=dev)
+                    new_b = lsh.assign_buckets(mat[ch].cpu().numpy())
+                    buckets = buckets.index_copy(
+                        0, ch, torch.as_tensor(new_b, device=dev))
+                if n_new:
+                    tail = lsh.assign_buckets(mat[prev.n:].cpu().numpy())
+                    buckets = torch.cat(
+                        [buckets, torch.as_tensor(tail, device=dev)])
+                self.buckets = buckets
+            else:
+                self.buckets = torch.as_tensor(
+                    lsh.assign_buckets(mat.cpu().numpy()), device=dev)
 
-    def index_of(self, id_: str) -> "int | None":
-        i = self.id_to_idx.get(id_)
-        return i if i is not None and i < self.n else None
+    def device_nbytes(self) -> int:
+        arrays = (self.mat,
+                  self.score_mat if self.score_mat is not self.mat else None,
+                  self.norms, self.buckets)
+        return sum(a.numel() * a.element_size() for a in arrays if a is not None)
 
 
-def _check_supported(sample_rate: float, device_dtype: str) -> None:
-    """Raise on the serving settings the port does not have yet."""
-    if sample_rate < 1.0:
-        raise NotImplementedError(
-            "LSH sampling (sample_rate < 1) is not ported yet")
-    if device_dtype not in ("auto", "float32"):
-        raise NotImplementedError(
-            f"the port serves device_dtype 'auto' or 'float32' (both score "
-            f"in float32), not {device_dtype!r}")
+#: Host-side quantization chunk: bounds the transient float32 work while
+#: building a full quantized snapshot.
+_QUANT_CHUNK = 1 << 16
+
+
+class _QuantSnapshot(SnapshotIndex):
+    """Immutable int8 device view of Y (``device-dtype = int8``):
+    per-row-scaled int8 factors, exact float32 norms and the optional LSH
+    buckets. No float32 (or bfloat16) copy of Y is ever on the device.
+
+    Built from the store's host snapshot (``host_matrix``) and kept current
+    with composed host deltas (``delta_info``): a speed microbatch's point
+    updates requantize only the changed and appended rows, landed in NEW
+    tensors (a query thread may hold this one). ``version`` anchors the next
+    delta; ``slab`` / ``slab_rows`` are the pinned exact-rescore view."""
+
+    def __init__(self, ids, version: int, qmat, qscale, norms, buckets,
+                 prev: "_QuantSnapshot | None" = None,
+                 appended: "list[str] | None" = None,
+                 slab=None, slab_rows=None):
+        self.ids = ids
+        self.n = len(ids)
+        self.version = version
+        self.qmat = qmat        # (n, k) int8 on the device
+        self.qscale = qscale    # (n,) float32
+        self.norms = norms      # (n,) float32, exact
+        self.buckets = buckets  # (n,) int32 or None
+        # this snapshot's slab object and the slab row of each position:
+        # structural store changes replace the live slab and never write
+        # this one; a point update into a captured row is visible here, and
+        # the rescore then ranks with factors newer than the scan's (benign)
+        self.slab = slab
+        self.slab_rows = slab_rows
+        self.mat = None
+        self.score_mat = None
+        self._index_ids(prev if appended is not None else None)
+
+    def quantized_nbytes(self) -> int:
+        """Device bytes of the quantized factors: the int8 rows and their
+        float32 scales."""
+        return sum(a.numel() * a.element_size()
+                   for a in (self.qmat, self.qscale) if a is not None)
+
+    def device_nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.qmat, self.qscale, self.norms, self.buckets)
+                   if a is not None)
+
+    def gather_rows(self, positions: np.ndarray) -> np.ndarray:
+        """Exact float32 rows for snapshot ``positions``, gathered from the
+        pinned slab view (one fancy index)."""
+        pos = np.clip(np.asarray(positions, dtype=np.int64), 0, self.n - 1)
+        return self.slab[self.slab_rows[pos]]
+
+    @classmethod
+    def build(cls, ids, host: np.ndarray, version: int,
+              lsh: "LocalitySensitiveHash | None", row_view: tuple,
+              device: torch.device, prev: "_QuantSnapshot | None" = None):
+        """Full quantized build from one host matrix, quantized in chunks so
+        the host transient stays bounded."""
+        n = len(ids)
+        slab, slab_rows = row_view
+        if n == 0 or host.size == 0:
+            return cls(list(ids), version, None, None, None, None)
+        k = host.shape[1]
+        q = np.empty((n, k), dtype=np.int8)
+        scale = np.empty(n, dtype=np.float32)
+        norms = np.empty(n, dtype=np.float32)
+        for a in range(0, n, _QUANT_CHUNK):
+            b = min(n, a + _QUANT_CHUNK)
+            q[a:b], scale[a:b] = _quantize_rows(host[a:b])
+            norms[a:b] = np.linalg.norm(host[a:b], axis=1)
+        buckets = None
+        if lsh and lsh.num_hashes:
+            buckets = torch.as_tensor(lsh.assign_buckets(host), device=device)
+        return cls(list(ids), version, torch.as_tensor(q, device=device),
+                   torch.as_tensor(scale, device=device),
+                   torch.as_tensor(norms, device=device), buckets, prev=prev,
+                   slab=slab, slab_rows=slab_rows)
+
+    @classmethod
+    def from_delta(cls, prev: "_QuantSnapshot", delta,
+                   lsh: "LocalitySensitiveHash | None"):
+        """Incremental step: requantize only the changed and appended rows
+        and land them in new tensors (row scatters out of place, one
+        append)."""
+        qmat, qscale, norms, buckets = (
+            prev.qmat, prev.qscale, prev.norms, prev.buckets)
+        dev = qmat.device
+        changed_pos = [prev.id_to_idx[i] for i in delta.changed_ids
+                       if i in prev.id_to_idx]
+        if changed_pos:
+            pos = torch.as_tensor(changed_pos, dtype=torch.int64, device=dev)
+            qc, sc = _quantize_rows(delta.changed_vals)
+            qmat = qmat.index_copy(0, pos, torch.as_tensor(qc, device=dev))
+            qscale = qscale.index_copy(0, pos, torch.as_tensor(sc, device=dev))
+            norms = norms.index_copy(0, pos, torch.as_tensor(
+                np.linalg.norm(delta.changed_vals, axis=1), device=dev))
+            if buckets is not None:
+                buckets = buckets.index_copy(0, pos, torch.as_tensor(
+                    lsh.assign_buckets(delta.changed_vals), device=dev))
+        if delta.appended_ids:
+            qa, sa = _quantize_rows(delta.appended_vals)
+            qmat = torch.cat([qmat, torch.as_tensor(qa, device=dev)])
+            qscale = torch.cat([qscale, torch.as_tensor(sa, device=dev)])
+            norms = torch.cat([norms, torch.as_tensor(
+                np.linalg.norm(delta.appended_vals, axis=1), device=dev)])
+            if buckets is not None:
+                buckets = torch.cat([buckets, torch.as_tensor(
+                    lsh.assign_buckets(delta.appended_vals), device=dev)])
+        ids = prev.ids + delta.appended_ids
+        # extend the pinned view: delta.slab is the CURRENT slab (a growth
+        # copies rows in place, so prev's indices stay valid in it)
+        slab_rows = (
+            np.concatenate([prev.slab_rows,
+                            np.asarray(delta.appended_rows, dtype=np.int64)])
+            if len(delta.appended_ids) else prev.slab_rows
+        )
+        return cls(ids, delta.version, qmat, qscale, norms, buckets,
+                   prev=prev, appended=delta.appended_ids,
+                   slab=delta.slab, slab_rows=slab_rows)
 
 
 class ALSServingModel(ServingModel):
     def __init__(self, features: int, implicit: bool, sample_rate: float = 1.0,
-                 device_dtype: str = "auto", device=None):
-        _check_supported(sample_rate, device_dtype)
+                 device_dtype: str = "auto", rescore_factor: float = 4.0,
+                 index_enabled: bool = False, index_cells: int = 0,
+                 index_probes: int = 8, index_skew: float = 4.0, device=None):
+        if device_dtype not in _DEVICE_DTYPES:
+            raise ValueError(
+                f"oryx.serving.device-dtype must be one of {_DEVICE_DTYPES}, "
+                f"not {device_dtype!r}")
+        if index_enabled and device_dtype != "int8":
+            # the IVF cells ARE the int8 representation, and the rescore
+            # rides the int8 mode's pinned slab view
+            log.warning(
+                "oryx.serving.index.enabled requires device-dtype=int8 "
+                "(resolved %r); serving without the IVF index", device_dtype)
+            index_enabled = False
         self.features = features
         self.implicit = implicit
+        self.sample_rate = sample_rate
+        self.device_dtype = device_dtype
+        self.rescore_factor = max(1.0, float(rescore_factor))
+        self.index_enabled = bool(index_enabled)
+        self.index_cells = int(index_cells)
+        self.index_probes = max(1, int(index_probes))
+        self.index_skew = max(1.0, float(index_skew))
         self.device = resolve(device)
         self.x = FeatureVectorStore()
         self.y = FeatureVectorStore()
+        self.lsh = (LocalitySensitiveHash(sample_rate, features)
+                    if sample_rate < 1.0 else None)
         self.known_items: dict[str, set[str]] = {}
         self._known_lock = threading.Lock()
         self.expected_user_ids: set[str] = set()
         self.expected_item_ids: set[str] = set()
         self.yty_cache = SolverCache(self.y.get_vtv)
-        self._snapshot: "_YSnapshot | None" = None
+        self._snapshot = None
         self._snap_lock = threading.Lock()
 
     # -- vector + known-item bookkeeping ------------------------------------
@@ -241,12 +536,17 @@ class ALSServingModel(ServingModel):
         return (self.x.size() + self.y.size()) / total
 
     # -- device snapshot ----------------------------------------------------
-    def y_snapshot(self) -> _YSnapshot:
-        """The current device view of Y. After point updates alone it is
-        built from the previous one (see ``FeatureVectorStore.materialize``
-        and :class:`_YSnapshot`), across any number of store generations
-        (``get_vtv`` may have taken some in between). One thread at a time:
+    def y_snapshot(self):
+        """The current device view of Y: a :class:`_YSnapshot` (float32 /
+        bfloat16), a :class:`_QuantSnapshot` (int8) or an
+        :class:`~oryx_tpu_torch.models.als.ivf.IVFSnapshot` (int8 with the
+        index). After point updates alone each is built from the previous
+        one, across any number of store generations. One thread at a time:
         a snapshot is never replaced by an older one."""
+        if self.device_dtype == "int8":
+            if self.index_enabled:
+                return self._ivf_snapshot()
+            return self._quant_snapshot()
         with self._snap_lock:
             ids, mat = self.y.materialize(self.device)
             snap = self._snapshot
@@ -256,12 +556,96 @@ class ALSServingModel(ServingModel):
                     delta = self.y.delta_since(snap.mat, mat)
                 self._snapshot = _YSnapshot(
                     ids, mat, prev=snap if delta is not None else None,
-                    delta=delta)
+                    delta=delta, lsh=self.lsh, device_dtype=self.device_dtype)
             return self._snapshot
+
+    def _quant_snapshot(self) -> _QuantSnapshot:
+        """Current int8 device view: incremental (requantize and land only
+        the rows a speed microbatch touched) while the store's write log
+        covers the gap, a full chunked build otherwise. The store's float32
+        device cache is never engaged in this mode: its slab is the exact
+        float32 source the rescore gathers from."""
+        with self._snap_lock:
+            prev = (self._snapshot if isinstance(self._snapshot, _QuantSnapshot)
+                    else None)
+            if prev is not None and prev.qmat is not None:
+                delta = self.y.delta_info(prev.version, prev.n)
+                if delta is not None:
+                    if not delta.changed_ids and not delta.appended_ids:
+                        return prev
+                    self._snapshot = _QuantSnapshot.from_delta(prev, delta, self.lsh)
+                    return self._snapshot
+            ids, host, version, row_view = self.y.host_matrix()
+            self._snapshot = _QuantSnapshot.build(
+                ids, host, version, self.lsh, row_view, self.device, prev=prev)
+            return self._snapshot
+
+    def _ivf_snapshot(self) -> "ivf_mod.IVFSnapshot":
+        """Current IVF device view: incremental (requantize and reassign only
+        the touched rows, rewrite only the affected cells) while the write
+        log covers the gap and the update neither overflows a cell nor
+        drifts the balance past the skew bound; a full re-cluster
+        otherwise."""
+        with self._snap_lock:
+            prev = (self._snapshot
+                    if isinstance(self._snapshot, ivf_mod.IVFSnapshot) else None)
+            if prev is not None and prev.cell_q is not None:
+                delta = self.y.delta_info(prev.version, prev.n)
+                if delta is not None:
+                    if not delta.changed_ids and not delta.appended_ids:
+                        return prev
+                    nxt = ivf_mod.IVFSnapshot.from_delta(prev, delta, self.lsh)
+                    if nxt is not None:
+                        self._snapshot = nxt
+                        return nxt
+            ids, host, version, row_view = self.y.host_matrix()
+            self._snapshot = ivf_mod.IVFSnapshot.build(
+                ids, host, version, self.lsh, row_view, prev=prev,
+                cells=self.index_cells, probes=self.index_probes,
+                skew_bound=self.index_skew, device=self.device)
+            return self._snapshot
+
+    def device_factor_bytes(self) -> int:
+        """Bytes the current Y snapshot holds on the device."""
+        return self.y_snapshot().device_nbytes()
+
+    # -- the exact rescore ---------------------------------------------------
+    def _rescore_exact(self, snap, qs_host: np.ndarray, vals: np.ndarray,
+                       idx: np.ndarray, cosine: bool = False
+                       ) -> "tuple[np.ndarray, np.ndarray]":
+        """Exact float32 rescore of a quantized scan's candidates: gather
+        the candidate rows from the snapshot's pinned slab view, recompute
+        exact scores on the host, and return the candidates ranked by them
+        (a stable sort). Masked candidates (-inf from the scan) stay -inf.
+        For ``cosine`` the batch dimension is the query-vector set of ONE
+        request (mean cosine). Host numpy, as the reference's."""
+        B, R = idx.shape
+        rows = snap.gather_rows(idx.reshape(-1)).reshape(B, R, -1)
+        if cosine:
+            r = rows[0]
+            rn = np.linalg.norm(r, axis=1)
+            qn = np.linalg.norm(qs_host, axis=1)
+            sims = (r @ qs_host.T) / np.maximum(rn[:, None] * qn[None, :], 1e-12)
+            exact = np.mean(sims, axis=1, dtype=np.float32)[None, :]
+        else:
+            exact = np.einsum("bk,brk->br", qs_host, rows).astype(np.float32)
+        exact = np.where(np.isfinite(vals), exact, -np.inf)
+        order = np.argsort(-exact, axis=1, kind="stable")
+        return (np.take_along_axis(exact, order, axis=1),
+                np.take_along_axis(idx, order, axis=1))
+
+    def _quant_scan(self, snap: _QuantSnapshot, qs_host: np.ndarray, r: int,
+                    excl, lut=None):
+        """One quantized candidate scan + exact rescore: (vals, idx) of
+        width ``r``, ranked by exact float32 score."""
+        qs = torch.as_tensor(qs_host, device=self.device)
+        vals, idx = _quant_candidates(snap, qs, r, lut=lut, excl=excl)
+        return self._rescore_exact(snap, qs_host, vals.cpu().numpy(),
+                                   idx.cpu().numpy())
 
     # -- query primitives ----------------------------------------------------
     @staticmethod
-    def _excluded_indices(snap: _YSnapshot, excluded, batch: int) -> np.ndarray:
+    def _excluded_indices(snap, excluded, batch: int) -> np.ndarray:
         """(B, E) int64 of Y rows to mask out, -1-padded, E a pow2 floored at
         ``_EXCL_PAD_MIN``."""
         idx_lists: list[list[int]] = []
@@ -276,6 +660,31 @@ class ALSServingModel(ServingModel):
         for b, ix in enumerate(idx_lists):
             out[b, : len(ix)] = ix
         return out
+
+    def _excl_tensor(self, snap, excluded, batch: int):
+        """The (B, E) exclusion tensor on the device, or None when no query
+        excludes a row this snapshot holds."""
+        if not excluded or not any(e for e in excluded):
+            return None
+        padded = self._excluded_indices(snap, excluded, batch)
+        if not (padded >= 0).any():
+            return None
+        return torch.as_tensor(padded, device=self.device)
+
+    def _build_lut(self, qs_host: np.ndarray) -> torch.Tensor:
+        """(B, num_buckets) boolean LSH candidate table on the device, one
+        row per query (``lsh.get_candidate_lut``)."""
+        return torch.as_tensor(self.lsh.get_candidate_lut(qs_host),
+                               device=self.device)
+
+    def _candidate_mask(self, snap, query_vec: np.ndarray):
+        """(n,) booleans: the rows whose LSH bucket is a candidate of
+        ``query_vec``'s; None without LSH."""
+        if self.lsh is None or snap.buckets is None:
+            return None
+        lut = np.zeros(self.lsh.num_buckets, dtype=bool)
+        lut[self.lsh.get_candidate_indices(query_vec)] = True
+        return torch.as_tensor(lut, device=self.device)[snap.buckets]
 
     def top_n(
         self,
@@ -292,16 +701,19 @@ class ALSServingModel(ServingModel):
         snap = self.y_snapshot()
         if snap.n == 0:
             return []
+        q_host = np.asarray(query_vec, dtype=np.float32)
+        if isinstance(snap, ivf_mod.IVFSnapshot):
+            return ivf_mod.top_n(self, snap, q_host, how_many, offset, allowed,
+                                 rescore, excluded)
+        if isinstance(snap, _QuantSnapshot):
+            return self._quant_top_n(snap, q_host, how_many, offset, allowed,
+                                     rescore, excluded)
         want = how_many + offset
-        q = torch.as_tensor(np.asarray(query_vec, dtype=np.float32),
-                            device=self.device)
-        excl = None
-        if excluded:
-            padded = self._excluded_indices(snap, [excluded], 1)
-            if (padded >= 0).any():
-                excl = torch.as_tensor(padded, device=self.device)
+        q = torch.as_tensor(q_host, device=self.device)
+        valid = self._candidate_mask(snap, q_host)
+        excl = self._excl_tensor(snap, [excluded], 1)
         # score once; widenings re-run only the top-k over the same scores
-        scores = _masked_scores(snap.mat, q[None, :], excl)
+        scores = _masked_scores(snap.score_mat, q[None, :], valid, excl)
         k = min(snap.n, _round_up_pow2(max(4 * want, 64)))
         while True:
             vals, idx = torch.topk(scores, k, dim=1)
@@ -311,6 +723,27 @@ class ALSServingModel(ServingModel):
                 return out[offset:offset + how_many]
             k = min(snap.n, k * 2)
 
+    def _quant_top_n(self, snap: _QuantSnapshot, q_host: np.ndarray,
+                     how_many: int, offset: int, allowed, rescore, excluded
+                     ) -> list[tuple[str, float]]:
+        """Single-query top-N on the int8 path: the quantized scores once
+        (by row chunk), then top-r, exact rescore and host filtering,
+        widening r over the same scores until enough survive."""
+        want = how_many + offset
+        excl = self._excl_tensor(snap, [excluded], 1)
+        valid = self._candidate_mask(snap, q_host)
+        qs = torch.as_tensor(q_host[None, :], device=self.device)
+        scores = _quant_masked_scores(snap, qs, valid, excl)
+        r = min(snap.n, _round_up_pow2(max(int(self.rescore_factor * want), 16)))
+        while True:
+            v, i = torch.topk(scores, r, dim=1)
+            vals, idx = self._rescore_exact(snap, q_host[None, :],
+                                            v.cpu().numpy(), i.cpu().numpy())
+            out = self._collect(snap, vals[0], idx[0], want, allowed, rescore)
+            if len(out) >= want or r >= snap.n:
+                return out[offset:offset + how_many]
+            r = min(snap.n, r * 2)
+
     def top_n_batch(
         self,
         query_vecs,
@@ -318,7 +751,7 @@ class ALSServingModel(ServingModel):
         alloweds: "Sequence[Callable[[str], bool] | None] | None" = None,
         excluded: "Sequence[Sequence[str] | None] | None" = None,
     ) -> list[list[tuple[str, float]]]:
-        """Many queries in ONE product + top-k on the device.
+        """Many queries in ONE scan + top-k on the device.
         ``excluded[b]`` ids are masked on the device; ``alloweds`` host
         callables filter after the scan (a query they starve falls back to
         the widening single-query path)."""
@@ -328,49 +761,83 @@ class ALSServingModel(ServingModel):
             return [[] for _ in range(n_q)]
         qs_host = np.asarray(query_vecs, dtype=np.float32)
         filtering = alloweds is not None and any(a is not None for a in alloweds)
-        use_excl = excluded is not None and any(e for e in excluded)
-        excl = (
-            torch.as_tensor(self._excluded_indices(snap, excluded, n_q),
-                            device=self.device)
-            if use_excl else None
-        )
-        k = min(
-            snap.n,
-            _round_up_pow2(max(2 * how_many, 64) if filtering else max(how_many, 16)),
-        )
-        scores = _masked_scores(snap.mat, torch.as_tensor(qs_host, device=self.device),
-                                excl)
+        if isinstance(snap, ivf_mod.IVFSnapshot):
+            return ivf_mod.top_n_batch(self, snap, qs_host, how_many, alloweds,
+                                       excluded, filtering)
+        if isinstance(snap, _QuantSnapshot):
+            return self._quant_top_n_batch(snap, qs_host, how_many, alloweds,
+                                           excluded, filtering)
+        excl = self._excl_tensor(snap, excluded, n_q)
+        qs = torch.as_tensor(qs_host, device=self.device)
+        if self.lsh is None or snap.buckets is None:
+            k = min(snap.n, _round_up_pow2(
+                max(2 * how_many, 64) if filtering else max(how_many, 16)))
+            scores = _masked_scores(snap.score_mat, qs, None, excl)
+        else:
+            # per-query LSH candidates: the (B, buckets) table indexed by
+            # each row's bucket on the device
+            k = min(snap.n, _round_up_pow2(max(2 * how_many, 64)))
+            valid = self._build_lut(qs_host)[:, snap.buckets]
+            scores = _masked_scores(snap.score_mat, qs, valid, excl)
         vals, idx = torch.topk(scores, k, dim=1)
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        return self._batch_results(snap, qs_host, vals.cpu().numpy(),
+                                   idx.cpu().numpy(), k, how_many, alloweds,
+                                   excluded, filtering, self.top_n)
+
+    def _batch_results(self, snap, qs_host, vals, idx, k, how_many, alloweds,
+                       excluded, filtering, single) -> list:
+        """The batch's answers from its top-k: cut to ``how_many``, or, when
+        host filters apply, collected per query; a query they starve falls
+        back to ``single`` (the widening single-query path)."""
         if not filtering:
             ids = snap.ids
             vb, ib = vals[:, :how_many], idx[:, :how_many]
             return [
                 [(ids[int(i)], float(v)) for v, i in zip(vb[b], ib[b]) if np.isfinite(v)]
-                for b in range(n_q)
+                for b in range(len(qs_host))
             ]
         out = []
-        for b in range(n_q):
+        for b in range(len(qs_host)):
             allowed = alloweds[b] if alloweds else None
             got = self._collect(snap, vals[b], idx[b], how_many, allowed, None)[:how_many]
             if len(got) < how_many and k < snap.n:
-                got = self.top_n(
-                    qs_host[b], how_many, 0, allowed, None,
-                    excluded=excluded[b] if excluded else None,
-                )
+                got = single(qs_host[b], how_many, 0, allowed, None,
+                             excluded=excluded[b] if excluded else None)
             out.append(got)
         return out
+
+    def _quant_top_n_batch(self, snap: _QuantSnapshot, qs_host: np.ndarray,
+                           how_many: int, alloweds, excluded, filtering: bool
+                           ) -> list[list[tuple[str, float]]]:
+        """Batched top-N on the int8 path: ONE quantized scan of the whole
+        batch returning ``rescore-factor × how_many`` candidates each,
+        rescored exactly from the slab before the final cut."""
+        excl = self._excl_tensor(snap, excluded, len(qs_host))
+        r = min(snap.n,
+                _round_up_pow2(max(int(self.rescore_factor * how_many), 16)))
+        lut = (self._build_lut(qs_host)
+               if self.lsh is not None and snap.buckets is not None else None)
+        vals, idx = self._quant_scan(snap, qs_host, r, excl, lut=lut)
+
+        def single(q, how_many_, offset, allowed, rescore, excluded=None):
+            return self._quant_top_n(snap, q, how_many_, offset, allowed,
+                                     rescore, excluded)
+
+        return self._batch_results(snap, qs_host, vals, idx, r, how_many,
+                                   alloweds, excluded, filtering, single)
 
     def warm_bucket(self, batch_size: int, how_many: int = 10) -> None:
         """One bucket of the serving layer's warmup ladder
         (``serving/app.py`` ``_BatchWarmer``): a zero batch of
-        ``batch_size`` queries through ``top_n_batch``, once without
-        exclusions and once with (the default ``/recommend`` path always
-        sends known-item exclusions; an id no snapshot holds pads to an
-        all-(-1) mask of the floored width). On the card that takes the
-        caching allocator's first allocations and cuBLAS's kernel choice for
-        this shape off the request path. Raises when the model has no items
-        yet (the warmer retries later)."""
+        ``batch_size`` queries through ``top_n_batch`` on whichever
+        representation serves (float32 / bfloat16, int8, the IVF index),
+        once without exclusions and once with (the default ``/recommend``
+        path always sends known-item exclusions; an id no snapshot holds
+        pads to an all-(-1) mask of the floored width). Torch compiles
+        nothing per shape: on the card this takes the caching allocator's
+        first allocations and cuBLAS's kernel choice for this shape off the
+        request path. Raises when the model has no items yet (the warmer
+        retries later)."""
         if self.y_snapshot().n == 0:
             raise ValueError("no item factors to warm against yet")
         zeros = np.zeros((batch_size, self.features), dtype=np.float32)
@@ -389,18 +856,44 @@ class ALSServingModel(ServingModel):
         rescore: "Callable[[str, float], float] | None" = None,
     ) -> list[tuple[str, float]]:
         """Mean-cosine top-N for /similarity (CosineAverageFunction.java:67):
-        each item's mean cosine to the query vectors, on the device."""
+        each item's mean cosine to the query vectors, on the device; with
+        LSH over the union of every query vector's candidate buckets."""
         snap = self.y_snapshot()
         if snap.n == 0:
             return []
-        qs = torch.as_tensor(
-            np.atleast_2d(np.asarray(query_vecs, dtype=np.float32)),
-            device=self.device)
+        qs_host = np.atleast_2d(np.asarray(query_vecs, dtype=np.float32))
+        if isinstance(snap, ivf_mod.IVFSnapshot):
+            return ivf_mod.top_n_cosine(
+                self, snap, qs_host, np.linalg.norm(qs_host, axis=1),
+                how_many, offset, allowed, rescore)
+        qs = torch.as_tensor(qs_host, device=self.device)
         q_norms = torch.linalg.vector_norm(qs, dim=1)
+        valid = None
+        for qv in qs_host:
+            mask = self._candidate_mask(snap, qv)
+            if mask is not None:
+                valid = mask if valid is None else valid | mask
+        want = how_many + offset
+        if isinstance(snap, _QuantSnapshot):
+            # quantized candidates (exact norms), exact mean-cosine rescore
+            # from the slab before the final cut
+            scores = _quant_cosine_scores(snap, qs, q_norms, valid)
+            r = min(snap.n,
+                    _round_up_pow2(max(int(self.rescore_factor * want), 16)))
+            while True:
+                v, i = torch.topk(scores, r)
+                vals, idx = self._rescore_exact(
+                    snap, qs_host, v.cpu().numpy()[None, :],
+                    i.cpu().numpy()[None, :], cosine=True)
+                out = self._collect(snap, vals[0], idx[0], want, allowed, rescore)
+                if len(out) >= want or r >= snap.n:
+                    return out[offset:offset + how_many]
+                r = min(snap.n, r * 2)
         sims = (snap.mat @ qs.T) / torch.clamp(
             snap.norms[:, None] * q_norms[None, :], min=1e-12)
         scores = sims.mean(dim=1)
-        want = how_many + offset
+        if valid is not None:
+            scores = torch.where(valid, scores, -math.inf)
         k = min(snap.n, _round_up_pow2(max(4 * want, 64)))
         while True:
             vals, idx = torch.topk(scores, k)
@@ -468,19 +961,30 @@ class ALSServingModelManager(AbstractServingModelManager):
         self.sample_rate = config.get_float("oryx.als.sample-rate")
         self.min_model_load_fraction = config.get_float(
             "oryx.serving.min-model-load-fraction")
+        # the item representation on the device: "auto" (float32 off a
+        # TPU), "float32", "bfloat16", or "int8" (per-row-scaled slab +
+        # exact float32 rescore of the top rescore-factor x n candidates)
         self.device_dtype = config.get_string("oryx.serving.device-dtype", "auto")
-        _check_supported(self.sample_rate, self.device_dtype)
-        for key, what in (
-                ("oryx.serving.compute.sharded", "sharded serving"),
-                ("oryx.serving.index.enabled", "the IVF index")):
-            if config.get_bool(key, False):
-                raise NotImplementedError(f"{key}: {what} is not ported yet")
+        if self.device_dtype not in _DEVICE_DTYPES:
+            raise ValueError(
+                f"oryx.serving.device-dtype must be one of {_DEVICE_DTYPES}, "
+                f"not {self.device_dtype!r}")
+        self.rescore_factor = config.get_float("oryx.serving.rescore-factor", 4.0)
+        # the IVF index: engages only with device-dtype=int8
+        self.index_enabled = config.get_bool("oryx.serving.index.enabled", False)
+        self.index_cells = config.get_int("oryx.serving.index.cells", 0)
+        self.index_probes = config.get_int("oryx.serving.index.probes", 8)
+        self.index_skew = config.get_float("oryx.serving.index.rebalance-skew", 4.0)
+        if config.get_bool("oryx.serving.compute.sharded", False):
+            raise NotImplementedError(
+                "oryx.serving.compute.sharded: sharded serving is not ported yet")
         if (config.get_bool("oryx.serving.compute.precompile-batches", False)
                 and config.get_bool("oryx.compile.prewarm-swap", True)):
             raise NotImplementedError(
                 "oryx.serving.compute.precompile-batches with "
                 "oryx.compile.prewarm-swap: the staged model swap is not "
                 "ported yet")
+        self.rescorer_provider = load_rescorer_providers(config)
         self.device = resolve(device)
         # the YᵀY pre-trigger's rate limit (ALSServingModelManager.java:95-105)
         self._solver_trigger_rate = RateLimitCheck(5)
@@ -513,7 +1017,12 @@ class ALSServingModelManager(AbstractServingModelManager):
             if current is None or current.features != features:
                 new_model = ALSServingModel(
                     features, meta["implicit"], self.sample_rate,
-                    device_dtype=self.device_dtype, device=self.device,
+                    device_dtype=self.device_dtype,
+                    rescore_factor=self.rescore_factor,
+                    index_enabled=self.index_enabled,
+                    index_cells=self.index_cells,
+                    index_probes=self.index_probes,
+                    index_skew=self.index_skew, device=self.device,
                 )
                 # the handoff meta names every expected row: presize the
                 # stores so the fill skips doubling-growth copies

@@ -30,9 +30,16 @@ snapshots, and its first ``mat.shape[0]`` entries are the matrix's rows.
 A device matrix, once returned, is never written again: the next one is a
 new tensor, filled (the cached rows, the appended rows, the changed rows
 scattered) before it is handed out, so a query thread, a background solver
-recompute or :meth:`delta_since` may hold any earlier one. The reference's host-delta API (``delta_info`` / ``HostDelta``)
-serves only its int8 and IVF snapshots and is not ported yet; the write log
-is what it reads.
+recompute or :meth:`delta_since` may hold any earlier one.
+
+The host snapshot API serves consumers that must never put a float32 copy
+of the matrix on the device (the int8 and IVF serving snapshots):
+:meth:`host_matrix` returns a host copy with the *pinned row view* beside
+it, the slab object and the slab row of each snapshot position, for exact
+rescore gathers that stay valid whatever the live store does afterwards (a
+removal or a retain re-packs into a fresh slab; a growth copies into a
+fresh slab too, rows in place); :meth:`delta_info` composes the write log
+since a consumer's version into one :class:`HostDelta`.
 """
 
 from __future__ import annotations
@@ -73,6 +80,55 @@ class Transition:
         self.new_ref = weakref.ref(new_mat)
         self.changed_idx = changed_idx
         self.n_new = n_new
+
+
+class SnapshotIndex:
+    """The id → row map of a snapshot of one order epoch, shared by every
+    device view of Y: an incremental snapshot extends its predecessor's map
+    for the appended rows instead of rebuilding it. Every lookup goes
+    through :meth:`index_of`, bounded by this snapshot's ``n``, so an older
+    snapshot never names a row it does not hold."""
+
+    ids: list
+    n: int
+    id_to_idx: dict
+
+    def _index_ids(self, prev: "SnapshotIndex | None") -> None:
+        """Build the map, or extend ``prev``'s (an incremental step of the
+        same order epoch)."""
+        if prev is not None:
+            self.id_to_idx = prev.id_to_idx
+            for i in range(prev.n, self.n):
+                self.id_to_idx[self.ids[i]] = i
+        else:
+            self.id_to_idx = {self.ids[i]: i for i in range(self.n)}
+
+    def index_of(self, id_: str) -> "int | None":
+        i = self.id_to_idx.get(id_)
+        return i if i is not None and i < self.n else None
+
+
+class HostDelta:
+    """Composed host-side delta between two store versions, for a consumer
+    that keeps its own per-row state (the int8 and IVF snapshots): the
+    changed ids of the consumer's rows with their current values, and the
+    appended ids with theirs and their slab rows. Values are the slab's at
+    the time of :meth:`FeatureVectorStore.delta_info` (newest wins)."""
+
+    __slots__ = ("version", "changed_ids", "changed_vals", "appended_ids",
+                 "appended_vals", "appended_rows", "slab")
+
+    def __init__(self, version, changed_ids, changed_vals, appended_ids,
+                 appended_vals, appended_rows=None, slab=None):
+        self.version = version
+        self.changed_ids = changed_ids        # list[str], the consumer's rows
+        self.changed_vals = changed_vals      # (len(changed_ids), k) float32
+        self.appended_ids = appended_ids      # list[str]
+        self.appended_vals = appended_vals    # (len(appended_ids), k) float32
+        self.appended_rows = appended_rows    # slab rows of the appended ids
+        self.slab = slab                      # the CURRENT slab object: row
+        # indices are stable within an order epoch (a growth copies rows in
+        # place, and every change that moves a row is structural)
 
 
 class FeatureVectorStore:
@@ -231,14 +287,58 @@ class FeatureVectorStore:
         with self._lock.read():
             return list(self._ids)
 
-    def host_matrix(self) -> "tuple[list, np.ndarray, int]":
-        """(ids, row-aligned float32 copy, version): the full host snapshot;
-        the caller owns the copy."""
+    def host_matrix(self) -> "tuple[list, np.ndarray, int, tuple]":
+        """(ids, row-aligned float32 copy, version, (slab, rows)): the full
+        host snapshot; the caller owns the copy. The trailing pair pins this
+        order epoch for later exact-rescore gathers: ``slab[rows[i]]`` is
+        position ``i``'s row for as long as the caller holds the pair,
+        whatever the live store does (a structural change re-packs into a
+        fresh slab and never writes this one's rows again; a point update
+        into a captured row is visible, newer than the snapshot)."""
         with self._lock.read():
             n = len(self._ids)
-            if self._slab is None:
-                return [], np.zeros((0, 0), dtype=np.float32), self._version
-            return list(self._ids), self._slab[:n].copy(), self._version
+            slab = self._slab
+            rows = np.arange(n, dtype=np.int64)
+            if slab is None:
+                return ([], np.zeros((0, 0), dtype=np.float32), self._version,
+                        (slab, rows))
+            return list(self._ids), slab[:n].copy(), self._version, (slab, rows)
+
+    def delta_info(self, since_version: int, since_len: int) -> "HostDelta | None":
+        """Everything written since ``since_version`` for a consumer whose
+        snapshot held the first ``since_len`` ids of the order, composed
+        into one :class:`HostDelta`. ``None`` when a structural change
+        happened since, or the bounded write log no longer covers the gap:
+        the consumer then rebuilds from :meth:`host_matrix`."""
+        with self._lock.read():
+            if self._rebuild_needed_at > since_version:
+                return None
+            if self._version == since_version:
+                return HostDelta(self._version, [], None, [], None)
+            # every version bump since since_version is structural (caught
+            # above) or a logged set_vector: a log starting past
+            # since_version + 1 lost writes of the gap
+            if not self._log or self._log[0][0] > since_version + 1:
+                return None
+            changed_rows: set = set()
+            for v, row, _was_new in reversed(self._log):
+                if v <= since_version:
+                    break
+                changed_rows.add(row)
+            n = len(self._ids)
+            # rows are positions in an order epoch: the appended rows are
+            # the tail past the consumer's length
+            changed = sorted(r for r in changed_rows if r < since_len)
+            appended_rows = np.arange(since_len, n, dtype=np.int64)
+            changed_vals = (self._slab[np.asarray(changed, dtype=np.int64)]
+                            if changed else None)
+            appended_vals = self._slab[since_len:n].copy() if n > since_len else None
+            ids = self._ids
+            return HostDelta(
+                self._version, [ids[r] for r in changed], changed_vals,
+                ids[since_len:n], appended_vals,
+                appended_rows=appended_rows, slab=self._slab,
+            )
 
     # -- device materialisation ---------------------------------------------
     def materialize(self, device=None) -> "tuple[list, torch.Tensor | None]":

@@ -14,8 +14,10 @@ JAX) on the same aiohttp, held to it over HTTP by
     topic, a thread, a producer or a socket, so on a host without a card it
     raises with nothing started; a manager class whose constructor takes a
     ``device`` keyword is built on that device. A configured
-    ``oryx.als.rescorer-provider-class`` raises at construction (the
-    rescorer is not ported yet, ROADMAP Queue 1, item 4).
+    ``oryx.als.rescorer-provider-class`` is loaded at construction, so a
+    class that cannot be loaded, or is not the port's ``RescorerProvider``,
+    raises before anything starts; the ALS manager loads it again for the
+    resources.
 
 Equivalent of the reference's ServingLayer + ModelManagerListener +
 OryxApplication (framework/oryx-lambda-serving/.../ServingLayer.java:121-337,
@@ -59,6 +61,7 @@ from oryx_tpu_torch.common import resilience
 from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common import tsdb
+from oryx_tpu_torch.models.als.rescorer import load_rescorer_providers
 from oryx_tpu_torch.serving import resource as rsrc
 from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
@@ -792,10 +795,9 @@ class ServingLayer:
 
     def __init__(self, config, device=None):
         self.config = config
-        if config.get("oryx.als.rescorer-provider-class", None):
-            raise NotImplementedError(
-                "oryx.als.rescorer-provider-class: the rescorer is not "
-                "ported yet (ROADMAP Queue 1, item 4)")
+        # a provider that cannot be built refuses the layer here, not at
+        # the first request
+        load_rescorer_providers(config)
         # tcp client knobs must be adopted BEFORE the first get_broker()
         # (start() resolves brokers well before make_app re-configures)
         netbroker.configure(config)

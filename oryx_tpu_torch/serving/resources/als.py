@@ -3,9 +3,10 @@
 A copy of the JAX package's ``oryx_tpu/serving/resources/als.py`` (host
 code, no JAX), held to it over HTTP by ``tests/test_torch_serving.py``. The
 cosines of ``/similarityToItem`` and ``/because`` run as one product on the
-model's device. The port's manager has no rescorer provider (the layer
-refuses ``oryx.als.rescorer-provider-class`` at construction), so every
-recommend-family request without one takes the coalescer.
+model's device. The manager's ``rescorer_provider`` (from
+``oryx.als.rescorer-provider-class``) supplies the per-request hooks; a
+request whose rescorer rewrites scores takes the model's single-query
+``top_n``, every other recommend-family request the coalescer.
 
 Equivalent of the reference's app/oryx-app-serving ALS resources (SURVEY §2.11
 endpoint inventory; per-class citations inline). Handlers are async; device

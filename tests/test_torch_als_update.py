@@ -393,12 +393,17 @@ def _write_model(tmp_path, users, items):
 
 
 @pytest.mark.parametrize("overlay", [
-    {"oryx.als.sample-rate": 0.5},
-    {"oryx.serving.device-dtype": "bfloat16"},
-    {"oryx.serving.device-dtype": "int8"},
+    # sharded serving (and with it the reference's int8 + mesh fallback)
+    # and the staged swap are not ported, whatever the representation
     {"oryx.serving.compute.sharded": True},
-    {"oryx.serving.index.enabled": True},
+    {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8"},
+    {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8",
+     "oryx.serving.index.enabled": True},
     {"oryx.serving.compute.precompile-batches": True},
+    {"oryx.serving.compute.precompile-batches": True,
+     "oryx.compile.prewarm-swap": True},
+    {"oryx.serving.compute.precompile-batches": True,
+     "oryx.serving.device-dtype": "int8"},
 ])
 def test_unsupported_serving_settings_raise_at_construction(overlay):
     with pytest.raises(NotImplementedError):
@@ -406,7 +411,16 @@ def test_unsupported_serving_settings_raise_at_construction(overlay):
 
 
 def test_supported_serving_settings_construct():
+    with pytest.raises(ValueError, match="device-dtype"):
+        ALSServingModelManager(cfg.overlay_on(
+            {"oryx.serving.device-dtype": "float16"}, cfg.get_default()), device="cpu")
     for overlay in ({}, {"oryx.serving.device-dtype": "float32"},
+                    {"oryx.als.sample-rate": 0.5},
+                    {"oryx.serving.device-dtype": "bfloat16"},
+                    {"oryx.serving.device-dtype": "int8"},
+                    {"oryx.serving.index.enabled": True},
+                    {"oryx.serving.device-dtype": "int8",
+                     "oryx.serving.index.enabled": True},
                     {"oryx.serving.compute.precompile-batches": True,
                      "oryx.compile.prewarm-swap": False}):
         mgr = ALSServingModelManager(cfg.overlay_on(overlay, cfg.get_default()),

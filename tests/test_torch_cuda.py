@@ -559,7 +559,7 @@ def test_incremental_snapshot_on_the_card_equals_a_whole_upload(cuda_device):
         for j in range(r * 30):
             store.set_vector(f"new{r}-{j}", rng.standard_normal(k).astype(np.float32))
         ids, mat = store.materialize()
-        host_ids, host, _ = store.host_matrix()
+        host_ids, host, _, _ = store.host_matrix()
         assert mat.device.type == "cuda" and list(ids[:mat.shape[0]]) == host_ids
         assert torch.equal(mat, torch.from_numpy(host).to(cuda_device))
     assert store.materializations == {"full": 1, "incremental": 4}
@@ -819,3 +819,144 @@ def test_deployment_serving_replica_on_the_card_over_tcp(cuda_device, tmp_path):
     finally:
         dep.close()
         tp.reset_tcp_clients()
+
+
+def _planted_items(seed, n_centers=64, reps=200, k=32, noise=0.25):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_centers, k)).astype(np.float32) * 2.0
+    items = (np.repeat(centers, reps, axis=0)
+             + rng.standard_normal((n_centers * reps, k)).astype(np.float32) * noise)
+    qs = (centers[rng.integers(0, n_centers, 24)]
+          + rng.standard_normal((24, k)).astype(np.float32) * noise)
+    return items, qs, [f"i{j}" for j in range(len(items))]
+
+
+def _serving_pair(device_dtype, sample_rate, items, ids, **kw):
+    """The same model on the card and on the CPU (LSH drawn under the same
+    test seed)."""
+    from oryx_tpu_torch.common import rand
+    from oryx_tpu_torch.models.als.serving import ALSServingModel
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        rand.use_test_seed()
+        m = ALSServingModel(items.shape[1], True, sample_rate,
+                            device_dtype=device_dtype, device=dev, **kw)
+        m.bulk_load_items(ids, items)
+        out.append(m)
+    return out
+
+
+def _ids(results):
+    return [[i for i, _ in r] for r in results]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_dtype,sample_rate", [
+    ("int8", 1.0), ("int8", 0.3), ("bfloat16", 1.0), ("bfloat16", 0.3),
+    ("float32", 0.3)])
+def test_serving_representations_on_the_card_answer_as_the_cpu(
+        cuda_device, device_dtype, sample_rate):
+    """int8 (exact rescore from the host slab: the same ids and the same
+    score bits as the CPU's), bfloat16 (float32 output of a bf16 product on
+    the card: the same ids, scores within 1e-3 relative of the CPU's
+    bf16-rounded float32 product) and LSH masks (the same buckets) on the
+    card against the port's own CPU results, with exclusions and a filter."""
+    items, qs, ids = _planted_items(SEED + 11)
+    card, cpu = _serving_pair(device_dtype, sample_rate, items, ids)
+    rng = np.random.default_rng(SEED + 12)
+    excluded = [[ids[j] for j in rng.choice(len(ids), 5, replace=False)]
+                for _ in range(len(qs))]
+    allowed = lambda i: int(i[1:]) % 4 != 0  # noqa: E731
+    for kw in ({}, {"excluded": excluded},
+               {"alloweds": [allowed] * len(qs), "excluded": excluded}):
+        a, b = card.top_n_batch(qs, 10, **kw), cpu.top_n_batch(qs, 10, **kw)
+        if device_dtype == "int8":
+            assert a == b  # ids and exact scores
+        else:
+            assert _ids(a) == _ids(b)
+            rel = 1e-3 if device_dtype == "bfloat16" else 1e-5
+            np.testing.assert_allclose([s for r in a for _, s in r],
+                                       [s for r in b for _, s in r], rtol=rel)
+    if sample_rate < 1:
+        snap_a, snap_b = card.y_snapshot(), cpu.y_snapshot()
+        assert torch.equal(snap_a.buckets.cpu(), snap_b.buckets)
+    assert _ids([card.top_n_cosine(qs[:3], 10)]) == _ids([cpu.top_n_cosine(qs[:3], 10)])
+    assert _ids([card.top_n(qs[0], 10, allowed=allowed)]) == _ids(
+        [cpu.top_n(qs[0], 10, allowed=allowed)])
+
+
+@pytest.mark.cuda
+def test_int8_scan_on_the_card_stays_in_its_chunks(cuda_device, monkeypatch):
+    """With chunks forced to 4,096 rows the quantized candidate scan's
+    transient stays below one float32 copy of the slab; its running top-r
+    is the top-r of the whole score matrix (the same bits), and its values
+    are the CPU's within 1e-5 relative."""
+    from oryx_tpu_torch.models.als import serving
+
+    items, qs, ids = _planted_items(SEED + 13, reps=800)
+    monkeypatch.setattr(serving, "_SCAN_BYTES", 4 * (len(qs) + items.shape[1]) * 4096)
+    card, cpu = _serving_pair("int8", 1.0, items, ids)
+    snap_a, snap_b = card.y_snapshot(), cpu.y_snapshot()
+    qa = torch.as_tensor(qs, device=cuda_device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    va, ia = serving._quant_candidates(snap_a, qa, 64)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < items.size * 4
+    whole = serving._quant_masked_scores(snap_a, qa)
+    assert torch.equal(va, torch.topk(whole, 64, dim=1).values)
+    assert torch.equal(whole.gather(1, ia), va)
+    vb, _ = serving._quant_candidates(snap_b, torch.as_tensor(qs), 64)
+    np.testing.assert_allclose(va.cpu().numpy(), vb.numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_rate", [1.0, 0.3])
+def test_ivf_on_the_card_answers_as_the_cpu_and_keeps_its_cells(cuda_device,
+                                                                 sample_rate):
+    """The IVF index built on the card from the same centroids as on the
+    CPU: the same cell tables byte for byte, the same ids (and exact
+    scores) for batches, single queries and cosine; after a burst of moved,
+    rewritten and new rows the card's incremental snapshot equals a rebuild
+    on the card with the same centroids, bit for bit, and the CPU's."""
+    from oryx_tpu_torch.models.als import ivf
+
+    items, qs, ids = _planted_items(SEED + 14)
+    card, cpu = _serving_pair("int8", sample_rate, items, ids,
+                              index_enabled=True, index_cells=64, index_probes=4)
+    centroids = ivf.IVFSnapshot.build(
+        *cpu.y.host_matrix()[:3], None, cpu.y.host_matrix()[3],
+        cells=64, device="cpu").centroids_np
+    for m in (card, cpu):
+        i_, host, version, view = m.y.host_matrix()
+        m._snapshot = ivf.IVFSnapshot.build(
+            i_, host, version, m.lsh, view, centroids=centroids, probes=4,
+            device=m.device)
+    tables = ("cell_pos", "cell_q", "cell_scale", "cell_norms")
+    sa, sb = card.y_snapshot(), cpu.y_snapshot()
+    for name in tables:
+        assert torch.equal(getattr(sa, name).cpu(), getattr(sb, name)), name
+    excluded = [[ids[j] for j in range(b, 400, 37)] for b in range(len(qs))]
+    assert card.top_n_batch(qs, 10, excluded=excluded) == cpu.top_n_batch(
+        qs, 10, excluded=excluded)
+    assert card.top_n(qs[1], 10) == cpu.top_n(qs[1], 10)
+    assert _ids([card.top_n_cosine(qs[:2], 10)]) == _ids([cpu.top_n_cosine(qs[:2], 10)])
+    rng = np.random.default_rng(SEED + 15)
+    burst = [(f"i{j}", items[(j + 200 * 7) % len(items)]
+              + rng.standard_normal(items.shape[1]).astype(np.float32) * 0.25)
+             for j in rng.choice(len(items), 300, replace=False).tolist()]
+    burst += [(f"new{j}", items[j * 50] * 1.01) for j in range(40)]
+    for m in (card, cpu):
+        for id_, v in burst:
+            m.set_item_vector(id_, v)
+    s1, c1 = card.y_snapshot(), cpu.y_snapshot()
+    assert s1.centroids_np is sa.centroids_np and s1.n == len(items) + 40
+    i_, host, version, view = card.y.host_matrix()
+    rebuilt = ivf.IVFSnapshot.build(i_, host, version, card.lsh, view,
+                                    centroids=centroids,
+                                    cell_width=s1.cell_width, device=cuda_device)
+    for name in tables:
+        assert torch.equal(getattr(s1, name), getattr(rebuilt, name)), name
+        assert torch.equal(getattr(s1, name).cpu(), getattr(c1, name)), name

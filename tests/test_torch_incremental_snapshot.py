@@ -126,7 +126,7 @@ def test_incremental_equals_full_rebuild():
     ids_full, mat_full = fresh.materialize(CPU)
     assert list(ids_inc[:mat_inc.shape[0]]) == list(ids_full)
     assert torch.equal(mat_inc, mat_full)
-    host_ids, host, _ = store.host_matrix()
+    host_ids, host, _, _ = store.host_matrix()
     assert torch.equal(mat_inc, torch.from_numpy(host))
 
 

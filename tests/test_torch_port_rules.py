@@ -30,6 +30,7 @@ from oryx_tpu_torch.lambda_rt.batch import BatchLayer
 from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
 from oryx_tpu_torch.models.als import train
 from oryx_tpu_torch.models.als.data import RatingBatch
+from oryx_tpu_torch.models.als.ivf import IVFSnapshot
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
 from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
@@ -88,6 +89,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "common/lineage.py", "api/serving.py"} <= scanned
     assert {"cli/__init__.py", "cli/__main__.py", "cli/main.py",
             "transport/netbroker.py", "parallel/distributed.py"} <= scanned
+    assert {"models/als/lsh.py", "models/als/rescorer.py",
+            "models/als/ivf.py", "models/als/serving.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -160,6 +163,12 @@ def _entry_points():
             als_conf, **kw),
         # ALSServingModel.y_snapshot's device copy
         "FeatureVectorStore.materialize": lambda **kw: store.materialize(**kw),
+        "ALSServingModel(int8)": lambda **kw: ALSServingModel(
+            3, True, device_dtype="int8", **kw),
+        "ALSServingModel(int8, index)": lambda **kw: ALSServingModel(
+            3, True, device_dtype="int8", index_enabled=True, **kw),
+        "IVFSnapshot.build": lambda **kw: IVFSnapshot.build(
+            ["a", "b"], rows, 0, None, (rows, np.arange(2)), **kw),
     }
 
 
@@ -279,10 +288,34 @@ def test_serving_layer_needs_the_card_unless_asked_for_the_cpu():
 
 
 def test_serving_layer_refuses_a_rescorer_provider_at_construction():
-    """The rescorer is not ported: a configured provider raises when the
-    layer is built, not silently dropped at request time."""
+    """A configured provider is loaded when the layer is built: one that
+    cannot be loaded, or is not the port's ``RescorerProvider`` (the
+    reference package's is not), raises then, not at the first request;
+    the port's own is taken."""
     from oryx_tpu_torch.serving.app import ServingLayer
 
-    conf = _serving_config(0, {"oryx.als.rescorer-provider-class": "x.Provider"})
-    with pytest.raises(NotImplementedError, match="rescorer"):
-        ServingLayer(conf, device="cpu")
+    for name, error in (("x.Provider", ValueError),
+                        ("oryx_tpu_torch.common.config.Config", TypeError)):
+        conf = _serving_config(0, {"oryx.als.rescorer-provider-class": name})
+        with pytest.raises(error):
+            ServingLayer(conf, device="cpu")
+    conf = _serving_config(0, {"oryx.als.rescorer-provider-class":
+                               "test_torch_rescorer.PlusOneProvider"})
+    assert ServingLayer(conf, device="cpu").manager is None  # not started
+
+
+@pytest.mark.parametrize("key,value", [
+    ("oryx.serving.compute.sharded", True),
+    ("oryx.serving.compute.precompile-batches", True),
+])
+def test_serving_manager_still_refuses_what_is_not_ported(key, value):
+    """Sharded serving and the staged swap stay refused at construction;
+    every other serving setting of the reference is taken."""
+    with pytest.raises(NotImplementedError):
+        ALSServingModelManager(_serving_config(0, {key: value}), device="cpu")
+    taken = ALSServingModelManager(_serving_config(0, {
+        "oryx.serving.device-dtype": "int8", "oryx.als.sample-rate": 0.3,
+        "oryx.serving.index.enabled": True, "oryx.serving.index.cells": 4,
+        "oryx.serving.rescore-factor": 2.0}), device="cpu")
+    assert (taken.device_dtype, taken.index_enabled, taken.index_cells,
+            taken.rescore_factor) == ("int8", True, 4, 2.0)

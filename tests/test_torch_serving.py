@@ -778,8 +778,10 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     120 items on the CPU: the replay, ``/recommend`` and every other read
     route against the loop's in-process model, ``/ingest`` through the speed
     layer into both managers, the load levels from a client process (the
-    coalescer batching at 64 connections), the probes and the close; and
-    ``kmeans_http`` on a small k-means model."""
+    coalescer batching at 64 connections), the probes and the close;
+    ``serving_quant_http`` (int8 with the IVF index, LSH and the smoke's
+    rescorer) on the same loop; and ``kmeans_http`` on a small k-means
+    model."""
     import chip_smoke as cs
     from oryx_tpu_torch.api.keymessage import KeyMessage
     from oryx_tpu_torch.models.kmeans import pmml_codec as km_codec
@@ -795,6 +797,7 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "HTTP_LOAD", ((1, 50), (16, 200), (64, 400)))
     monkeypatch.setattr(cs, "HTTP_KMEANS_QUERIES", 50)
     monkeypatch.setattr(cs, "HTTP_KMEANS_ADDS", 10)
+    monkeypatch.setattr(cs, "HTTP_QUANT_SIMILARITY", 10)
     rng = np.random.default_rng(11)
     u_f, i_f = rng.standard_normal((300, 2)), rng.standard_normal((120, 2))
     p = np.exp(u_f @ i_f.T)
@@ -812,6 +815,7 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
         loop.run_batch(lines, 0.2, 0.5, 120)
         loop.settle(30, "before the HTTP phase")
         out = cs.serving_http_phase(loop, rng, device="cpu")
+        quant = cs.serving_quant_http(loop, rng, device="cpu")
     finally:
         loop.close()
     loop.await_layers()
@@ -823,6 +827,10 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     assert all(lv["errors"] == 0 for lv in out["load"])
     assert out["load"][-1]["mean_batch"] > 1
     assert out["threads_left"] == [] and not any(out["launches"].values())
+    assert quant["snapshot"]["type"] == "IVFSnapshot" and quant["snapshot"]["lsh_buckets"]
+    assert quant["recommend_checked"]["users"] == 30
+    assert quant["similarity_checked"] == 10 and set(quant["statuses"]) == {200}
+    assert quant["threads_left"] == [] and not any(quant["launches"].values())
 
     conf = cfg.overlay_on({"oryx.input-schema.num-features": 4,
                            "oryx.input-schema.categorical-features": [],
