@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ALS loop (batch, speed, serving) and k-means
-path on one CUDA card and check every step.
+"""Drive the PyTorch port's ALS loop (batch, speed, serving), k-means path
+and random decision forest on one CUDA card and check every step.
 
     python3 chip_smoke.py
 
@@ -94,13 +94,14 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            the card's bound; and at K = 1,024, D = 128 (chunked centres,
            partial sums in device memory);
   profile  one ``torch.profiler`` session, started straight after the
-           sweep's timing, with three windows back to back: one more
+           sweep's timing, with four windows back to back: one more
            training iteration, with the packed blocks' schedules as the
-           trainer passes them, and one sweep at each of the two timed
-           shapes (device time by kernel, idle share); each sweep's window
+           trainer passes them, one sweep at each of the two timed
+           shapes, and one RDF tree's growth at the full covtype shape
+           (device time by kernel, idle share); each sweep's window
            must list each of its three launches once, and is printed in
            the ``kmeans_kernel`` line (``profile``,
-           ``update_shape.profile``);
+           ``update_shape.profile``), the tree's in the ``rdf`` line;
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
            the planted blobs through ``KMeansUpdate.build_model`` (the
@@ -121,6 +122,33 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``kmeans_train`` at 1,000,000 × 64, k = 256, 8 iterations, one
            run, twice (the second timed): point-iters/s, seeding and sweep
            seconds apart;
+  rdf      the random decision forest, the launch counters set to 0
+           first (no kernel may launch: the trainer is plain torch, as the
+           reference's is plain jnp), on 581,012 planted covtype-shaped
+           rows (Oryx's RDF example schema: 10 numeric predictors, 4
+           wilderness and 40 soil indicators, a 7-valued target; see
+           ``covtype_data``) with the reference's defaults (20 trees, depth
+           8, 100 split candidates, entropy, min-node-size 16,
+           min-info-gain 0.001): ``forest_train`` on the card twice (the
+           second timed: example-trees/s, seconds of binning, upload,
+           device levels, host mask draws and finalize, peak device
+           memory, one host sync per level; both runs the same trees); the
+           first two trees against a CPU run of two from the same generator
+           seed, node by node (equal, or first differing at a near-tie:
+           both best gains within 1e-6 relative); regression (5 trees) on
+           the card twice, the same PMML apart from its ``Timestamp``, and
+           its first two trees against the CPU (leaf means within 1e-5);
+           ``RDFUpdate.run_update`` with one candidate on the first 100,000
+           rows as CSV lines (hold-out accuracy >= 0.90), its ``MODEL``
+           into an ``RDFServingModelManager`` and an
+           ``RDFSpeedModelManager``, a 10,000-line microbatch's ``UP``s
+           (each example counted once per tree) into the serving manager
+           (each leaf grown by exactly its ``UP``); a ``ServingLayer`` with
+           the RDF manager and ``resources.classreg`` on a ``memory:``
+           topic holding that ``MODEL`` and those ``UP``s: 1,000
+           ``/predict`` and 100 ``/classificationDistribution`` equal to
+           the manager's own model's, ``/feature/importance`` equal to the
+           PMML's, no answer but 200;
   lambda_loop
            the ALS lambda loop through the port's runtime, after the
            k-means phases (mostly host work), on ``memory:`` topics: a ``BatchLayer`` and a
@@ -263,7 +291,13 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            touched users checked again on both replicas; the in-process
            loop's figures from this run beside them; the broker's RPCs by
            op with their mean server-side milliseconds, after the
-           generation and at the end (``broker_ops``, from its registry). Last, SIGTERM to each
+           generation and at the end (``broker_ops``, from its registry);
+           ``python -m oryx_tpu_torch.cli fleet-status --format json``
+           once against both replicas (exit 0, both up, each replica's
+           request total outside the ops routes equal to its own
+           ``/metrics`` read just after, less the console's own
+           ``/metrics/history`` request), then its ``--format table``
+           output printed as it is (``fleet_status``). Last, SIGTERM to each
            tier and the broker: each must exit 0 within 30 s, and no tier's
            bundle may count a quarantine, corrupt record, layer failure,
            failed send or consumer restart. On a failure the last 40 lines
@@ -274,7 +308,8 @@ Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 ``lambda_loop.batch``, in the k-means generation, in the loop's speed
 half ``lambda_loop.speed``, in the HTTP app's path ``serving_http``,
 where the last two must be all 0, in the serving representations'
-phase and its HTTP half ``serving_quant`` (all 0), and in the deployment's
+phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
+``rdf_generation`` (all 0), and in the deployment's
 batch process
 ``deployment``, read from its bundle's ``oryx_device_calls_total`` and
 equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too;
@@ -316,6 +351,7 @@ from oryx_tpu_torch.common import config as oryx_config
 from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics
+from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.lambda_rt.batch import BatchLayer
 from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
@@ -332,11 +368,18 @@ from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.serving import KMeansServingModelManager
 from oryx_tpu_torch.models.kmeans.speed import KMeansSpeedModelManager
 from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
+from oryx_tpu_torch.models.rdf import pmml_codec as rdf_codec
+from oryx_tpu_torch.models.rdf import train as rdftrain
+from oryx_tpu_torch.models.rdf.serving import RDFServingModelManager
+from oryx_tpu_torch.models.rdf.speed import RDFSpeedModelManager
+from oryx_tpu_torch.models.rdf.update import RDFUpdate
+from oryx_tpu_torch.models.schema import CategoricalValueEncodings, InputSchema
 from oryx_tpu_torch.ops import _build
 from oryx_tpu_torch.ops import kernels as K
 from oryx_tpu_torch.ops import vectormath
 from oryx_tpu_torch.pmml import pmmlutils
 from oryx_tpu_torch.serving.app import ServingLayer
+from oryx_tpu_torch.tools import trace_summary
 from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch import state
 
@@ -3317,6 +3360,73 @@ def bundle_failures(bundle: dict) -> dict:
             for labels, value in bundle["metrics"].get(name, {}).items() if value}
 
 
+def replica_requests(port: int) -> tuple:
+    """(requests outside the ops routes, ``/metrics/history`` requests) on
+    the replica's own ``/metrics``; answers the client cancelled are left
+    out, as the fleet console leaves them out."""
+    with contextlib.closing(HttpClient(port)) as client:
+        status, _, text = client.request("GET", "/metrics")
+    check(status == 200, f"GET /metrics on {port}: {status}")
+    total = history = 0.0
+    for name, key, value in trace_summary.parse_metrics_text(text.decode())[1]:
+        labels = dict(key)
+        if name != "oryx_serving_requests_total" or labels.get("status") == "cancelled":
+            continue
+        route = labels.get("route", "")
+        history += value if route == "/metrics/history" else 0.0
+        total += 0.0 if slo.is_ops_route(route) else value
+    return total, history
+
+
+def fleet_status_check(ports, what: str) -> dict:
+    """``python -m oryx_tpu_torch.cli fleet-status`` once, as JSON, against
+    the serving replicas on ``ports``: it must exit 0 and see every replica
+    up, and each replica's request total outside the ops routes
+    (``slo.is_ops_route``) must equal the same sum over that replica's own
+    ``/metrics``, read just after, less the console's own
+    ``/metrics/history`` request (a route ``is_ops_route`` does not exempt),
+    which it sends after reading ``/metrics``: exactly one per replica,
+    counted from reads of ``/metrics`` before and after. Then the
+    ``--format table`` output is printed as it is."""
+    replicas = ",".join(f"127.0.0.1:{p}" for p in ports)
+
+    def fleet_status(fmt: str) -> str:
+        done = subprocess.run(
+            [sys.executable, "-m", "oryx_tpu_torch.cli", "fleet-status",
+             "--replicas", replicas, "--format", fmt],
+            capture_output=True, text=True, timeout=120, cwd=REPO_ROOT)
+        check(done.returncode == 0, f"{what}: fleet-status --format {fmt} "
+              f"exited {done.returncode}: {done.stderr[-2000:]}")
+        return done.stdout
+
+    before = {port: replica_requests(port) for port in ports}
+    t0 = time.perf_counter()
+    snap = json.loads(fleet_status("json"))
+    json_s = time.perf_counter() - t0
+    rows = {row["replica"]: row for row in snap["table"]}
+    out: dict = {"json_s": json_s, "replicas": {}}
+    for port in ports:
+        row = rows.get(f"127.0.0.1:{port}", {})
+        check(row.get("up") is True, f"{what}: fleet-status sees 127.0.0.1:{port} "
+              f"down: {row.get('error')}")
+        own, history = replica_requests(port)
+        scrape_history = history - before[port][1]
+        check(scrape_history == 1, f"{what}: {scrape_history} /metrics/history "
+              f"requests on {port} during one fleet-status")
+        check(row["requests_total"] == own - scrape_history,
+              f"{what}: fleet-status counts {row['requests_total']} requests on "
+              f"{port}, its /metrics {own} (one of them the console's own "
+              "/metrics/history)")
+        out["replicas"][str(port)] = {"ready": row["ready"],
+                                      "requests_total": row["requests_total"],
+                                      "own_metrics_after": own}
+    fleet = rows["FLEET"]
+    check(fleet["n_up"] == len(ports), f"{what}: fleet-status FLEET row {fleet}")
+    out["fleet_requests_total"] = fleet["requests_total"]
+    print(fleet_status("table"), end="", flush=True)
+    return out
+
+
 def deployment_run(dep: Deployment, lines, rng, timeout: float = 600) -> dict:
     """The phase's body on a ``Deployment`` with nothing started yet; every
     wait fails after ``timeout`` seconds (the batch generation's, 1.5 x)."""
@@ -3448,6 +3558,7 @@ def deployment_run(dep: Deployment, lines, rng, timeout: float = 600) -> dict:
         "touched_checked": len(touched)}
 
     out["broker_ops"] = broker_ops(dep.broker.server_metrics())
+    out["fleet_status"] = fleet_status_check(dep.replica_ports, "deployment")
 
     # shutdown: each tier, then the broker; no tier may count a failure
     for name in [f"serving-{r}" for r in range(len(dep.replica_ports))] + ["speed"]:
@@ -3859,6 +3970,456 @@ def kmeans_train_phase(points) -> dict:
     return out
 
 
+# -- the random decision forest ---------------------------------------------
+
+# Oryx's RDF example schema is "covtype-style"
+# (conf/rdf-classification-example.conf:2), after the public UCI Covertype
+# set: 581,012 rows; 10 integer-valued numeric predictors at Covertype's
+# ranges; 4 wilderness and 40 soil indicator columns (two-valued
+# categorical); a 7-valued categorical target. The rows are planted from
+# the seed: the target follows an axis-aligned rule of depth 3 over
+# elevation, slope, road distance and one soil column, with 5% of labels
+# redrawn uniformly (the rule's ceiling is ~0.96); classes 1 and 2 hold
+# 83% of rows. As in Covertype, the wilderness and soil columns and three
+# distance columns follow the elevation band, so a node whose random
+# feature subset lacks elevation still finds splits. The regression target
+# is a piecewise function of the same columns plus noise. Hyperparameters:
+# the reference's defaults (oryx_tpu/common/reference_conf.py:706-715) —
+# 20 trees, depth 8, 100 split candidates, entropy, min-node-size 16,
+# min-info-gain 0.001. The generation runs on the first RDF_LINES rows as
+# CSV lines (its host parse is per-token Python, as in the reference) and
+# its speed microbatch is the next RDF_MICROBATCH rows.
+RDF_ROWS, RDF_NUMERIC, RDF_WILDERNESS, RDF_SOIL, RDF_CLASSES = 581_012, 10, 4, 40, 7
+RDF_TREES, RDF_DEPTH, RDF_CANDIDATES = 20, 8, 100
+RDF_MIN_NODE, RDF_MIN_GAIN = 16, 0.001
+RDF_REG_TREES, RDF_CPU_TREES, RDF_CPU_ROWS = 5, 2, RDF_ROWS
+RDF_LINES, RDF_MICROBATCH = 100_000, 10_000
+RDF_HTTP_PREDICT, RDF_HTTP_DISTRIBUTION = 1_000, 100
+RDF_GAIN_REL, RDF_MEAN_REL = 1e-6, 1e-5
+RDF_NUMERIC_NAMES = (
+    "Elevation", "Aspect", "Slope", "Horizontal_Distance_To_Hydrology",
+    "Vertical_Distance_To_Hydrology", "Horizontal_Distance_To_Roadways",
+    "Hillshade_9am", "Hillshade_Noon", "Hillshade_3pm",
+    "Horizontal_Distance_To_Fire_Points")
+RDF_CATEGORICAL_NAMES = (tuple(f"Wilderness_Area{i + 1}" for i in range(RDF_WILDERNESS))
+                         + tuple(f"Soil_Type{i + 1}" for i in range(RDF_SOIL)))
+RDF_PREDICTORS = RDF_NUMERIC + RDF_WILDERNESS + RDF_SOIL
+
+
+def covtype_data(rng: np.random.Generator, n: int) -> dict:
+    """``n`` planted covtype-shaped rows: ``X`` (n, 54) float64 with the
+    indicator columns as encodings 0/1, ``cover`` the class index 0..6
+    (Cover_Type − 1) and ``y`` the regression target."""
+    e = rng.normal(2960, 280, n).clip(1859, 3858).round()
+    aspect = rng.uniform(0, 360, n).round()
+    slope = rng.gamma(3.0, 4.7, n).clip(0, 66).round()
+    hyd_h = (0.5 * (e - 1859) + rng.normal(0, 40, n)).clip(0, 1397).round()
+    hyd_v = (0.25 * (e - 2500) + rng.normal(40, 12, n)).clip(-173, 601).round()
+    road = rng.gamma(2.0, 1200, n).clip(0, 7117).round()
+    sin_a = np.sin(np.radians(aspect))
+    shade9 = (212 + 25 * sin_a + rng.normal(0, 10, n)).clip(0, 254).round()
+    shade12 = (223 - 0.8 * slope + rng.normal(0, 10, n)).clip(0, 254).round()
+    shade3 = (142 - 35 * sin_a + rng.normal(0, 15, n)).clip(0, 254).round()
+    fire = (1.6 * (e - 1859) + rng.normal(0, 120, n)).clip(0, 7173).round()
+    zone = np.digitize(e, [2500, 3050, 3450])
+    wild = np.where(rng.random(n) < 0.8, zone, rng.integers(0, RDF_WILDERNESS, n))
+    soil = np.where(rng.random(n) < 0.8, zone * 10 + rng.integers(0, 10, n),
+                    rng.integers(0, RDF_SOIL, n))
+    soil10 = soil == 9  # Soil_Type10
+    cover = np.where(
+        e < 2500, np.where(soil10, 4, np.where(slope >= 15, 3, 6)),
+        np.where(e < 3050, np.where(road >= 4500, 5, 2),
+                 np.where((e >= 3450) & (road >= 1500), 7, 1)))
+    cover = np.where(rng.random(n) < 0.05, rng.integers(1, RDF_CLASSES + 1, n), cover)
+    y = (10.0 * zone + 5.0 * (slope >= 15) + 3.0 * (road >= 4500)
+         + 4.0 * soil10 + rng.normal(0, 1, n))
+    X = np.concatenate([
+        np.stack([e, aspect, slope, hyd_h, hyd_v, road, shade9, shade12,
+                  shade3, fire], axis=1),
+        np.eye(RDF_WILDERNESS)[wild], np.eye(RDF_SOIL)[soil]], axis=1)
+    return {"X": X, "cover": cover - 1, "y": y}
+
+
+def covtype_lines(X: np.ndarray, cover: np.ndarray) -> list:
+    """CSV lines: the 54 predictors as integers, then Cover_Type 1..7."""
+    return [",".join(map(str, row)) + f",{c + 1}"
+            for row, c in zip(X.astype(np.int64).tolist(), cover.tolist())]
+
+
+def rdf_conf(target: str = "Cover_Type"):
+    """The covtype schema (``target`` categorical for Cover_Type, numeric
+    otherwise) with the reference's RDF defaults (RDF_TREES and RDF_DEPTH
+    are them), one candidate."""
+    categorical = list(RDF_CATEGORICAL_NAMES)
+    if target == "Cover_Type":
+        categorical.append(target)
+    return oryx_config.overlay_on({
+        "oryx.input-schema.feature-names": [*RDF_NUMERIC_NAMES,
+                                            *RDF_CATEGORICAL_NAMES, target],
+        "oryx.input-schema.categorical-features": categorical,
+        "oryx.input-schema.target-feature": target,
+        "oryx.rdf.num-trees": RDF_TREES,
+        "oryx.rdf.hyperparams.max-depth": RDF_DEPTH,
+    }, oryx_config.get_default())
+
+
+def rdf_train(data: dict, task: str, num_trees: int, seed: int, device=None,
+              rows: "int | None" = None, timings=None, levels_out=None):
+    """``forest_train`` on the covtype rows with the reference's defaults."""
+    n = RDF_ROWS if rows is None else rows
+    classification = task == rdftrain.CLASSIFICATION
+    return rdftrain.forest_train(
+        data["X"][:n], (data["cover"] if classification else data["y"])[:n],
+        [False] * RDF_NUMERIC + [True] * (RDF_WILDERNESS + RDF_SOIL),
+        [0] * RDF_NUMERIC + [2] * (RDF_WILDERNESS + RDF_SOIL),
+        task=task, n_classes=RDF_CLASSES if classification else 0,
+        num_trees=num_trees, max_depth=RDF_DEPTH,
+        max_split_candidates=RDF_CANDIDATES, impurity="entropy",
+        min_node_size=RDF_MIN_NODE, min_info_gain_nats=RDF_MIN_GAIN,
+        rng=np.random.default_rng(seed), device=device, timings=timings,
+        levels_out=levels_out)
+
+
+def rdf_tree_window(data: dict, dev):
+    """One tree's growth at the full shape (bagged, a feature subset of
+    sqrt(54) per node, as each of the forest's 20), as a function for
+    ``device_profiles``: the binned inputs are built once, outside it."""
+    is_cat = np.array([False] * RDF_NUMERIC + [True] * (RDF_WILDERNESS + RDF_SOIL))
+    bins_np, _, n_bins = rdftrain.bin_features(
+        data["X"], is_cat, np.where(is_cat, 2, 0), RDF_CANDIDATES)
+    inputs = rdftrain.ForestInputs(
+        bins_np, data["cover"], is_cat, task=rdftrain.CLASSIFICATION,
+        n_classes=RDF_CLASSES, n_bins=n_bins, max_depth=RDF_DEPTH, device=dev)
+    bag = np.random.default_rng(SEED + 20).poisson(1.0, RDF_ROWS).astype(np.float32)
+    weights, scales = inputs.tree_weights(bag)
+    subset = rdftrain.subset_size(RDF_PREDICTORS, RDF_TREES, rdftrain.CLASSIFICATION)
+
+    def grow():
+        return rdftrain.grow_tree(
+            inputs, weights, scales, np.random.default_rng(SEED + 21),
+            subset_size=subset, max_depth=RDF_DEPTH, impurity="entropy",
+            min_node_size=RDF_MIN_NODE, min_info_gain_nats=RDF_MIN_GAIN)
+
+    return grow
+
+
+def _node_index(node_id: str) -> tuple:
+    """(depth, index within the level) of a root-path node id."""
+    idx = 0
+    for ch in node_id[1:]:
+        idx = 2 * idx + (ch == "+")
+    return len(node_id) - 1, idx
+
+
+def first_tree_difference(trees_a, trees_b, levels_a, levels_b,
+                          mean_rel: float = 0.0) -> "dict | None":
+    """The first node, tree by tree and level by level, where two forests
+    differ: in its split (feature, threshold or category set, default
+    side) or being a leaf in one only (``kind`` "split"), or in its record
+    count or leaf payload (``kind`` "payload"); with both best gains of the
+    node. Leaf means are compared within ``mean_rel`` relative."""
+    import dataclasses
+
+    for t, (ra, rb) in enumerate(zip(trees_a, trees_b)):
+        frontier = [(ra, rb)]
+        while frontier:
+            nxt = []
+            for a, b in frontier:
+                kind = None
+                if (a.split is None) != (b.split is None) or (
+                        a.split is not None and dataclasses.astuple(a.split)
+                        != dataclasses.astuple(b.split)):
+                    kind = "split"
+                elif a.count != b.count:
+                    kind = "payload"
+                elif a.split is None:
+                    if a.class_counts is not None:
+                        same = np.array_equal(a.class_counts, b.class_counts)
+                    else:
+                        same = (a.n == b.n and abs(a.mean - b.mean)
+                                <= mean_rel * max(abs(a.mean), abs(b.mean)))
+                    kind = None if same else "payload"
+                if kind is not None:
+                    depth, idx = _node_index(a.id)
+                    ga = float(levels_a[t][depth]["gain"][idx])
+                    gb = float(levels_b[t][depth]["gain"][idx])
+                    return {"tree": t, "node": a.id, "kind": kind,
+                            "gain_a": ga, "gain_b": gb,
+                            "gain_rel": abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)}
+                if a.split is not None:
+                    nxt += [(a.negative, b.negative), (a.positive, b.positive)]
+            frontier = nxt
+    return None
+
+
+def count_nodes(trees) -> int:
+    stack, n = list(trees), 0
+    while stack:
+        node = stack.pop()
+        n += 1
+        if node.split is not None:
+            stack += [node.negative, node.positive]
+    return n
+
+
+def rdf_held_against_cpu(data: dict, task: str, dev_trees, dev_levels,
+                         seed: int, mean_rel: float = 0.0) -> dict:
+    """The card's first RDF_CPU_TREES trees against a CPU run of that many
+    from the same generator seed, node by node: equal, or first differing
+    at a near-tie (both best gains within RDF_GAIN_REL relative)."""
+    cpu_levels: list = []
+    t0 = time.perf_counter()
+    cpu_trees, _ = rdf_train(data, task, RDF_CPU_TREES, seed, device="cpu",
+                             rows=RDF_CPU_ROWS, levels_out=cpu_levels)
+    cpu_s = time.perf_counter() - t0
+    diff = first_tree_difference(dev_trees[:RDF_CPU_TREES], cpu_trees,
+                                 dev_levels, cpu_levels, mean_rel)
+    check(diff is None or (diff["kind"] == "split"
+                           and diff["gain_rel"] <= RDF_GAIN_REL),
+          f"rdf {task}: card and CPU trees differ: {diff}")
+    return {"cpu_s": cpu_s, "trees": RDF_CPU_TREES, "rows": RDF_CPU_ROWS,
+            "nodes": count_nodes(cpu_trees), "first_difference": diff}
+
+
+def forest_pmml_text(trees, importances, conf) -> str:
+    """The forest's PMML text without its header ``Timestamp``."""
+    schema = InputSchema(conf)
+    encodings = CategoricalValueEncodings({
+        schema.feature_names.index(name): ["0", "1"]
+        for name in RDF_CATEGORICAL_NAMES})
+    pmml = rdf_codec.forest_to_pmml(
+        trees, importances, schema, encodings, max_depth=RDF_DEPTH,
+        max_split_candidates=RDF_CANDIDATES, impurity="variance")
+    return re.sub(r"<Timestamp>[^<]*</Timestamp>", "", pmmlutils.to_string(pmml))
+
+
+def rdf_training(data: dict, dev) -> dict:
+    """Classification at the full shape, twice (the second timed), the
+    first two trees held against the CPU; regression twice for equal bits
+    and against the CPU."""
+    out: dict = {}
+    seed = SEED + 22
+    runs = []
+    for call in ("first", "timed"):
+        timings: dict = {}
+        levels: list = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trees, importances = rdf_train(data, rdftrain.CLASSIFICATION, RDF_TREES,
+                                       seed, timings=timings, levels_out=levels)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        check(timings["host_syncs"] == timings["levels"],
+              f"rdf: {timings['host_syncs']} host syncs for {timings['levels']} levels")
+        runs.append((trees, importances, levels))
+        out[call] = {"seconds": seconds, "peak_device_bytes": peak, **timings}
+    timed = out["timed"]
+    out["example_trees_per_s"] = RDF_ROWS * RDF_TREES / timed["seconds"]
+    out["nodes"] = count_nodes(runs[1][0])
+    (trees, importances, levels), (trees2, importances2, _) = runs
+    check(first_tree_difference(trees, trees2, levels, levels) is None
+          and np.array_equal(importances, importances2),
+          "rdf: two card runs from one seed grew different forests")
+    check(abs(importances.sum() - 1.0) < 1e-9, "rdf: importances do not sum to 1")
+    out["held_against_cpu"] = rdf_held_against_cpu(
+        data, rdftrain.CLASSIFICATION, trees, levels, seed)
+
+    reg_conf = rdf_conf("Target")
+    texts = []
+    reg = {}
+    for call in ("first", "second"):
+        timings = {}
+        levels = []
+        t0 = time.perf_counter()
+        r_trees, r_imp = rdf_train(data, rdftrain.REGRESSION, RDF_REG_TREES,
+                                   seed + 1, timings=timings, levels_out=levels)
+        reg[call] = {"seconds": time.perf_counter() - t0, **timings}
+        texts.append(forest_pmml_text(r_trees, r_imp, reg_conf))
+        if call == "first":
+            first_trees, first_levels = r_trees, levels
+    check(texts[0] == texts[1], "rdf regression: two card runs gave different PMML")
+    reg["pmml_bytes"] = len(texts[0])
+    reg["equal_bits"] = True
+    reg["nodes"] = count_nodes(first_trees)
+    reg["held_against_cpu"] = rdf_held_against_cpu(
+        data, rdftrain.REGRESSION, first_trees, first_levels, seed + 1,
+        mean_rel=RDF_MEAN_REL)
+    out["regression"] = reg
+    return out
+
+
+def rdf_generation(conf, lines: list, micro: list) -> dict:
+    """``RDFUpdate.run_update`` with one candidate on the lines (10% held
+    out), published to a recording producer; its ``MODEL`` into an
+    ``RDFServingModelManager`` and an ``RDFSpeedModelManager``; the
+    microbatch's ``UP``s from the speed manager into the serving one."""
+    update = RDFUpdate(conf)
+    producer = RecordingProducer()
+    with tempfile.TemporaryDirectory(prefix="oryx-rdf-generation-") as model_dir:
+        t0 = time.perf_counter()
+        update.run_update(None, GENERATION_TIMESTAMP_MS, lines, [], model_dir,
+                          producer)
+        run_s = time.perf_counter() - t0
+        cands = update.report["candidates"]
+        check(len(cands) == 1 and all("failed" not in c for c in cands.values()),
+              f"rdf generation: candidates {cands}")
+        check([k for k, _, _ in producer.sent] == ["MODEL"],
+              "rdf generation: not one MODEL published")
+        promoted = pmmlutils.read(
+            Path(model_dir) / str(GENERATION_TIMESTAMP_MS) / "model.pmml")
+    cand = next(iter(cands.values()))
+    check(cand["eval"] >= 0.90, f"rdf generation: hold-out accuracy {cand['eval']}")
+    model_text = producer.sent[0][1]
+    serving = RDFServingModelManager(conf)
+    speed = RDFSpeedModelManager(conf)
+    for manager in (serving, speed):
+        manager.consume([KeyMessage("MODEL", model_text)])
+    forest, _ = rdf_codec.read(promoted)
+    check(len(serving.get_model().forest.trees) == RDF_TREES
+          and np.array_equal(serving.get_model().forest.feature_importances,
+                             forest.feature_importances),
+          "rdf generation: the served forest is not the promoted PMML's")
+    t0 = time.perf_counter()
+    ups = speed.build_updates([KeyMessage(None, ln) for ln in micro])
+    build_s = time.perf_counter() - t0
+    counted = sum(sum(json.loads(u)[2].values()) for u in ups)
+    check(counted == RDF_TREES * len(micro),
+          f"rdf speed: the UPs count {counted} examples, expected "
+          f"{RDF_TREES} x {len(micro)}")
+    # each UP is one (tree, leaf)'s class counts: every leaf's counts must
+    # grow by exactly its UP's
+    trees = serving.get_model().forest.trees
+    parsed = [json.loads(u) for u in ups]
+    leaves = [trees[t].find_by_id(node).prediction for t, node, _ in parsed]
+    before = [leaf.category_counts.copy() for leaf in leaves]
+    t0 = time.perf_counter()
+    serving.consume([KeyMessage("UP", u) for u in ups])
+    apply_s = time.perf_counter() - t0
+    for leaf, was, (t, node, counts) in zip(leaves, before, parsed):
+        grown = was.copy()
+        for enc, c in counts.items():
+            grown[int(enc)] += c
+        check(np.array_equal(leaf.category_counts, grown),
+              f"rdf speed: leaf {t}/{node} holds {leaf.category_counts}, "
+              f"expected {grown}")
+    return {"run_update_s": run_s, "split_s": update.report["split_s"],
+            "build_s": cand["build_s"], "evaluate_s": cand["evaluate_s"],
+            "accuracy": cand["eval"],
+            "publish_model_s": update.report["publish_model_s"],
+            "model_bytes": len(model_text.encode("utf-8")),
+            "speed": {"lines": len(micro), "ups": len(ups),
+                      "build_updates_s": build_s, "serving_apply_s": apply_s},
+            "model_text": model_text, "ups": ups, "serving": serving}
+
+
+def rdf_http(conf, gen: dict, rows: list, rng, device=None) -> dict:
+    """A ``ServingLayer`` with the RDF manager and ``resources.classreg`` on
+    a ``memory:`` update topic holding the generation's ``MODEL`` and the
+    speed ``UP``s: ``/predict`` and ``/classificationDistribution`` against
+    the in-process manager that applied the same messages, and
+    ``/feature/importance`` against the PMML's importances; no 5xx."""
+    t_phase = time.perf_counter()
+    broker_url = "memory:rdf-serving"
+    conf = conf.with_values({
+        "oryx.input-topic.broker": broker_url,
+        "oryx.update-topic.broker": broker_url,
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.rdf.serving.RDFServingModelManager",
+        "oryx.serving.application-resources":
+            "oryx_tpu_torch.serving.resources.classreg",
+    })
+    tp.maybe_create_topics(conf, "input-topic", "update-topic")
+    update_topic = conf.get_string("oryx.update-topic.message.topic")
+    producer = tp.TopicProducerImpl(broker_url, update_topic)
+    producer.send("MODEL", gen["model_text"])
+    for u in gen["ups"]:
+        producer.send("UP", u)
+    producer.close()
+    total = tp.get_broker(broker_url).size(update_topic)
+    layer, port, t_start, threads = start_layer(conf, "rdf serving_http", device)
+    client = HttpClient(port)
+    model = gen["serving"].get_model()
+    e2v = model.encodings.get_encoding_value_map(
+        model.input_schema.target_feature_index)
+    out: dict = {"update_messages": total}
+    statuses: dict = {}
+
+    def get(path):
+        status, _, data = client.request("GET", path)
+        statuses[status] = statuses.get(status, 0) + 1
+        check(status == 200, f"rdf serving_http: GET {path}: {status} {data[:200]!r}")
+        return data
+
+    try:
+        wait_until(lambda: applied_messages(layer) >= total, 120,
+                   "rdf serving_http: the replay", poll=0.005)
+        out["replay_s"] = time.perf_counter() - t_start
+        picks = rng.choice(len(rows), RDF_HTTP_PREDICT, replace=False)
+        t0 = time.perf_counter()
+        for i, j in enumerate(picks.tolist()):
+            datum = rows[j][:rows[j].rindex(",") + 1]  # the target left empty
+            tokens = datum.split(",")
+            want = model.predict(tokens)
+            got = get(f"/predict/{datum}").decode()
+            check(got == want, f"rdf serving_http: /predict/{datum}: {got!r}, "
+                  f"expected {want!r}")
+            if i < RDF_HTTP_DISTRIBUTION:
+                probs = model.make_prediction(tokens).category_probabilities
+                want_d = {e2v[k]: float(p) for k, p in enumerate(probs)}
+                got_d = {e["id"]: e["value"] for e in json.loads(
+                    get(f"/classificationDistribution/{datum}"))}
+                check(got_d == want_d, f"rdf serving_http: /classificationDistribution"
+                      f"/{datum}: {got_d}, expected {want_d}")
+        out["queries"] = {"predict": RDF_HTTP_PREDICT,
+                          "classification_distribution": RDF_HTTP_DISTRIBUTION,
+                          "seconds": time.perf_counter() - t0}
+        want_imp = [float(v) for v in model.forest.feature_importances]
+        check(json.loads(get("/feature/importance")) == want_imp,
+              "rdf serving_http: /feature/importance differs from the PMML's")
+        check(float(get("/feature/importance/0")) == want_imp[0],
+              "rdf serving_http: /feature/importance/0 differs")
+    finally:
+        client.close()
+        closed = close_layer(layer, port, "rdf serving_http", threads)
+    out.update(closed)
+    out["statuses"] = statuses
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def rdf_phase(data: dict, dev, rng) -> dict:
+    """The RDF family on the card, the launch counters set to 0 first: the
+    trainer at the full shape (and held against the CPU), the generation,
+    the speed ``UP``s and the HTTP app. No kernel of the three launches."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    out = {"rows": RDF_ROWS, "predictors": RDF_PREDICTORS,
+           "classes": RDF_CLASSES, "trees": RDF_TREES, "max_depth": RDF_DEPTH,
+           "split_candidates": RDF_CANDIDATES,
+           "histogram": "one index_add_ a level over the N*P (example, "
+                        "feature) pairs into a flat (node, feature, bin, "
+                        "class) int32 histogram (regression: three int64 "
+                        "fixed-point channels, one call each)"}
+    out["train"] = rdf_training(data, dev)
+    t0 = time.perf_counter()
+    lines = covtype_lines(data["X"][:RDF_LINES + RDF_MICROBATCH],
+                          data["cover"][:RDF_LINES + RDF_MICROBATCH])
+    out["lines_s"] = time.perf_counter() - t0
+    conf = rdf_conf()
+    gen = rdf_generation(conf, [KeyMessage(None, ln) for ln in lines[:RDF_LINES]],
+                         lines[RDF_LINES:])
+    out["http"] = rdf_http(conf, gen, lines[:RDF_LINES], rng)
+    out["generation"] = {k: v for k, v in gen.items()
+                         if k not in ("model_text", "ups", "serving")}
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"rdf: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3988,7 +4549,15 @@ def main() -> int:
     windows = {"als_iteration": iteration_fn(user_side, item_side, y)}
     for label, args in sweep_args.items():
         windows[label] = lambda a=args: K.kmeans_assign_accumulate(*a)
+    # the RDF rows, made here for the one-tree window and reused by the
+    # rdf phase
+    t0 = time.perf_counter()
+    rdf_data = covtype_data(np.random.default_rng(SEED + 19), RDF_ROWS)
+    rdf_data_s = time.perf_counter() - t0
+    windows["rdf_tree"] = rdf_tree_window(rdf_data, dev)
     profiles = device_profiles(windows)
+    del windows
+    torch.cuda.empty_cache()
     emit("profile", **profiles["als_iteration"])
     record["profile"] = sweep_profile(profiles["1M x 64"], "1M x 64")
     record["update_shape"]["profile"] = sweep_profile(profiles["100k x 64"],
@@ -3999,6 +4568,17 @@ def main() -> int:
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
+    rdf = rdf_phase(rdf_data, dev, np.random.default_rng(SEED + 23))
+    del rdf_data
+    emit("rdf", **rdf, data_s=rdf_data_s, profile=profiles["rdf_tree"], gpu=smi,
+         reduced={
+             "rows": "none: 581,012 rows x 54 predictors, Covertype's shape",
+             "trees": f"regression {RDF_REG_TREES} trees; classification "
+                      f"{RDF_TREES}, the reference's default",
+             "cpu_comparison": f"the first {RDF_CPU_TREES} trees on "
+                               f"{RDF_CPU_ROWS:,} rows",
+             "generation": f"the first {RDF_LINES:,} rows as CSV lines (the "
+                           "host parse is per-token Python, as in the reference)"})
     # last: mostly host work, and nothing after it is profiled; the loop
     # and the deployment on the first LOOP_USERS users' lines
     loop_lines = [ln for ln in lines if int(ln[1:ln.index(",")]) < LOOP_USERS]
@@ -4057,6 +4637,8 @@ def main() -> int:
         "serving_quant": {w: serving_quant["launches"][w]
                           + quant_http["launches"][w]
                           for w in serving_quant["launches"]},
+        # the RDF family (trainer, generation, speed, HTTP) launches none
+        "rdf_generation": rdf["launches"],
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too

@@ -2,7 +2,8 @@
 
 The JAX package ``oryx_tpu`` is the reference this package is held against;
 nothing here imports it or JAX. Layout mirrors the reference (``api/``,
-``common/``, ``ml/``, ``ops/``, ``pmml/``, ``store/``, ``models/als/``, ``models/kmeans/``). Every entry point takes ``device=None``, which
+``common/``, ``ml/``, ``ops/``, ``pmml/``, ``store/``, ``models/als/``,
+``models/kmeans/``, ``models/rdf/``, ``serving/``, ``transport/``, ``tools/``). Every entry point takes ``device=None``, which
 means the CUDA card: without one it raises unless the caller passes
 ``device="cpu"`` (see :mod:`oryx_tpu_torch.common.device`).
 """

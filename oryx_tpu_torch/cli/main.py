@@ -14,11 +14,10 @@ The port of the JAX package's ``oryx_tpu/cli/main.py`` (which is unchanged:
     reference. Without a card and without ``cpu`` a layer command exits
     non-zero from ``start()``, before any topic, thread or socket. There
     is no ``JAX_PLATFORMS`` block.
-  * ``fleet-status`` (it needs ``common/federation``) and ``analyze`` (it
-    analyses the JAX package's sources) are not ported: each exits 2 with
-    a message naming the ROADMAP item it waits for.
-  * ``broker`` and the topic tools import no torch: they are pure
-    transport, as in the reference.
+  * ``analyze`` (it analyses the JAX package's sources) is not ported: it
+    exits 2 with a message naming the ROADMAP item it waits for.
+  * ``broker``, the topic tools and ``fleet-status`` import no torch:
+    they are pure transport or pure HTTP, as in the reference.
 
 Below, the reference's text.
 
@@ -193,11 +192,79 @@ def cmd_broker(argv: "list[str]") -> int:
 
 
 def cmd_fleet_status(argv: "list[str]") -> int:
-    """Not ported: the fleet console needs ``common/federation``, which the
-    next slice of the port brings (ROADMAP Queue 1). Exits 2."""
-    print("fleet-status: not ported yet: it needs common/federation "
-          "(ROADMAP Queue 1, the next slice of the port)", file=sys.stderr)
-    return 2
+    """Fleet-wide observability console (common/federation.py): scrape N
+    replicas' ``/metrics`` + ``/readyz`` + ``/trace`` +
+    ``/metrics/history``, merge them soundly (counters sum, histograms add
+    bucket-wise, gauges keep per-replica labels, down replicas report
+    down), and render an operator table, a merged Prometheus ``fleet``
+    exposition, or JSON. Rate columns prefer a replica's own server-side
+    series from ``/metrics/history`` (with qps/freshness sparkline
+    columns); ``--watch`` re-scrapes on an interval and keeps client-side
+    delta derivation as the fallback for pre-history replicas in a mixed
+    fleet. Replica list from ``--replicas`` (comma-separated, repeatable)
+    or ``oryx.fleet.replicas``. Runbook: docs/slo.md."""
+    parser = argparse.ArgumentParser(
+        prog="oryx-run fleet-status",
+        description="Oryx fleet observability console",
+    )
+    parser.add_argument(
+        "--replicas", action="append", default=[],
+        help="comma-separated replica targets (host:port or http URLs); "
+             "repeatable; default: oryx.fleet.replicas",
+    )
+    parser.add_argument("--conf", help="HOCON config file overlaid on defaults")
+    parser.add_argument(
+        "--watch", type=float, default=0.0, metavar="SEC",
+        help="re-scrape every SEC seconds (rate columns prefer server-side "
+             "/metrics/history series, else scrape deltas); 0 = one shot",
+    )
+    parser.add_argument(
+        "--format", choices=["table", "prom", "json"], default="table",
+        help="table (operator view), prom (merged fleet exposition), json",
+    )
+    parser.add_argument("--timeout", type=float, default=None,
+                        help="per-replica scrape budget (default: "
+                             "oryx.fleet.scrape-timeout-sec)")
+    args = parser.parse_args(argv)
+    config = _load_config(args.conf)
+    replicas = [
+        entry.strip()
+        for chunk in args.replicas for entry in chunk.split(",")
+        if entry.strip()
+    ]
+    if not replicas:
+        replicas = [str(r) for r in config.get_list("oryx.fleet.replicas", [])]
+    if not replicas:
+        print("fleet-status: no replicas (pass --replicas or set "
+              "oryx.fleet.replicas)", file=sys.stderr)
+        return 2
+    timeout = args.timeout if args.timeout is not None else config.get_float(
+        "oryx.fleet.scrape-timeout-sec", 5.0
+    )
+    from oryx_tpu_torch.common import federation
+
+    prev = None
+    try:
+        while True:
+            snap = federation.scrape_fleet(replicas, timeout=timeout)
+            if args.format == "prom":
+                print(federation.render_prom(snap), end="")
+            elif args.format == "json":
+                import json as _json
+
+                print(_json.dumps(federation.to_json(snap, prev)))
+            else:
+                rows = federation.table_rows(snap, prev)
+                print(federation.render_table(rows), end="", flush=True)
+            if args.watch <= 0:
+                return 0
+            prev = snap
+            import time as _time
+
+            _time.sleep(args.watch)
+            print()
+    except KeyboardInterrupt:
+        return 0
 
 
 def cmd_analyze(argv: "list[str]") -> int:
@@ -232,6 +299,8 @@ def main(argv: "list[str] | None" = None) -> int:
         # surface (--port/--dir/...), and it must never pay a torch import
         return cmd_broker(args_in[1:])
     if args_in and args_in[0] == "fleet-status":
+        # the fleet aggregator is a pure-HTTP observer: its own option
+        # surface (--replicas/--watch/--format), never a torch import
         return cmd_fleet_status(args_in[1:])
     parser = argparse.ArgumentParser(
         prog="oryx-run",

@@ -1,7 +1,8 @@
 """Line codecs the input pipelines and the update topic need: CSV
 (RFC-4180 quoting) or a JSON array per line, and the JSON join/read of the
-k-means ``UP`` messages. A copy of the reference's ``common/textutils``
-codec functions (TextUtils.java:56-189 in the original Oryx)."""
+k-means and RDF ``UP`` messages, and the fleet console's sparkline. A copy
+of the reference's ``common/textutils`` codec functions (TextUtils.java:56-189
+in the original Oryx) and of ``sparkline``."""
 
 from __future__ import annotations
 
@@ -58,3 +59,30 @@ def parse_possibly_json(line: str) -> list[str]:
     if stripped.startswith("["):
         return parse_json_array(stripped)
     return parse_csv(line)
+
+
+_SPARK_CHARS = "▁▂▃▄▅▆▇█"
+
+
+def sparkline(values: Sequence[Any], width: int = 8) -> str:
+    """Render the last ``width`` numeric values as a unicode sparkline.
+
+    Non-numeric entries and NaNs are skipped; an empty/all-bad input renders
+    ``""``. A flat series renders the baseline glyph so "no data" and
+    "constant data" stay visually distinct. Used by the fleet-status table
+    to show /metrics/history series inline.
+    """
+    vals = [
+        float(v) for v in values
+        if isinstance(v, (int, float)) and not isinstance(v, bool) and v == v
+    ][-width:]
+    if not vals:
+        return ""
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK_CHARS[0] * len(vals)
+    top = len(_SPARK_CHARS) - 1
+    return "".join(
+        _SPARK_CHARS[min(top, int((v - lo) / (hi - lo) * (top + 1)))]
+        for v in vals
+    )

@@ -10,7 +10,8 @@ own harness: the replica's ``/recommend`` answers equal an in-test
 manager's fed from the same update topic, and a microbatch reaches them.
 Then the port's own rules: the layer commands refuse to start without a
 card unless ``cpu`` is asked for, before any topic, thread or socket;
-``fleet-status`` and ``analyze`` exit 2; the single-host half of
+``analyze`` exits 2 (``fleet-status`` is held to the reference by
+``tests/test_torch_federation.py``); the single-host half of
 ``parallel.distributed``; the shutdown hook of ``common.lockutils``.
 
 Every test that spawns a process has a deadline and kills what it started.
@@ -121,11 +122,12 @@ oryx {{
 
 
 def test_cli_transport_commands_import_no_torch():
-    """``broker`` and the topic tools are pure transport, as in the
-    reference: the CLI module, the broker and the topic code load without
-    torch."""
+    """``broker`` and the topic tools are pure transport and
+    ``fleet-status`` pure HTTP, as in the reference: the CLI module, the
+    broker, the topic code and the fleet console load without torch."""
     code = ("import sys; import oryx_tpu_torch.cli.main, "
-            "oryx_tpu_torch.transport.netbroker; "
+            "oryx_tpu_torch.transport.netbroker, "
+            "oryx_tpu_torch.common.federation; "
             "sys.exit(1 if 'torch' in sys.modules else 0)")
     assert subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           timeout=60).returncode == 0
@@ -250,8 +252,7 @@ def test_default_compute_platform_reaches_every_tier():
                        "batch")
 
 
-@pytest.mark.parametrize("command,message", [
-    ("fleet-status", "common/federation"), ("analyze", "item 7")])
+@pytest.mark.parametrize("command,message", [("analyze", "item 7")])
 def test_cli_unported_commands_exit_2(command, message):
     done = _run(command, "--replicas", "127.0.0.1:1", timeout=60)
     assert done.returncode == 2

@@ -960,3 +960,43 @@ def test_ivf_on_the_card_answers_as_the_cpu_and_keeps_its_cells(cuda_device,
     for name in tables:
         assert torch.equal(getattr(s1, name), getattr(rebuilt, name)), name
         assert torch.equal(getattr(s1, name).cpu(), getattr(c1, name)), name
+
+
+@pytest.mark.cuda
+def test_rdf_forest_on_the_card_matches_the_cpu(cuda_device):
+    """``forest_train`` on the card against its CPU run from the same
+    generator seed, on 4,000 covtype-shaped rows: classification (4 trees,
+    depth 6) grows the same trees, node for node, or first differs at a
+    near-tie (both best gains within 1e-6 relative: ``log`` may round
+    apart on the two devices); regression (3 trees) gives equal bits on
+    the card twice, equal to the CPU's. No kernel launches."""
+    from chip_smoke import covtype_data, first_tree_difference
+    from oryx_tpu_torch.models.rdf import train as rdftrain
+
+    data = covtype_data(np.random.default_rng(SEED), 4_000)
+    is_cat = [False] * 10 + [True] * 44
+    n_cat = [0] * 10 + [2] * 44
+
+    def grow(task, trees, device):
+        levels = []
+        forest, imp = rdftrain.forest_train(
+            data["X"], data["cover"] if task == rdftrain.CLASSIFICATION else data["y"],
+            is_cat, n_cat, task=task, n_classes=7, num_trees=trees, max_depth=6,
+            max_split_candidates=32, min_node_size=4, min_info_gain_nats=0.0,
+            rng=np.random.default_rng(SEED + 1), device=device, levels_out=levels)
+        return forest, imp, levels
+
+    K.reset_launches()
+    card = grow(rdftrain.CLASSIFICATION, 4, None)
+    cpu = grow(rdftrain.CLASSIFICATION, 4, "cpu")
+    diff = first_tree_difference(card[0], cpu[0], card[2], cpu[2])
+    assert diff is None or (diff["kind"] == "split" and diff["gain_rel"] <= 1e-6), diff
+    runs = [grow(rdftrain.REGRESSION, 3, None) for _ in range(2)]
+    reg_cpu = grow(rdftrain.REGRESSION, 3, "cpu")
+    assert first_tree_difference(runs[0][0], runs[1][0], runs[0][2], runs[1][2]) is None
+    assert np.array_equal(runs[0][1], runs[1][1])
+    for a, b in zip(runs[0][2], runs[1][2]):
+        for la, lb in zip(a, b):
+            assert all(np.array_equal(la[k], lb[k]) for k in la)
+    assert first_tree_difference(runs[0][0], reg_cpu[0], runs[0][2], reg_cpu[2]) is None
+    assert not any(K.LAUNCHES.values())

@@ -36,6 +36,8 @@ from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.als.vectors import FeatureVectorStore
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.update import KMeansUpdate
+from oryx_tpu_torch.models.rdf import train as rdftrain
+from oryx_tpu_torch.models.rdf.update import RDFUpdate
 from oryx_tpu_torch.ops import vectormath
 
 # six xdist workers share the CPU with wall-clock gates elsewhere in the suite
@@ -91,6 +93,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "transport/netbroker.py", "parallel/distributed.py"} <= scanned
     assert {"models/als/lsh.py", "models/als/rescorer.py",
             "models/als/ivf.py", "models/als/serving.py"} <= scanned
+    assert {"models/classreg.py", "models/rdf/tree.py", "models/rdf/train.py",
+            "models/rdf/pmml_codec.py", "models/rdf/update.py",
+            "models/rdf/speed.py", "models/rdf/serving.py",
+            "serving/resources/classreg.py", "common/federation.py",
+            "tools/trace_summary.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -127,14 +134,26 @@ def _entry_points():
     store = FeatureVectorStore()
     store.set_vector("a", rows[0])
 
+    rdf_conf = config.overlay_on(
+        {"oryx.input-schema.feature-names": ["a", "b", "label"],
+         "oryx.input-schema.categorical-features": ["label"],
+         "oryx.input-schema.target-feature": "label",
+         "oryx.rdf.num-trees": 2, "oryx.ml.eval.test-fraction": 0.25},
+        config.get_default())
+    rdf_lines = [KeyMessage(None, f"{a},{b},{'hi' if i % 2 else 'lo'}")
+                 for i, (a, b) in enumerate(points[:, :2].tolist() * 2)]
+
     def run_update(update):
+        data = {ALSUpdate: ratings, RDFUpdate: rdf_lines}.get(type(update), lines)
         with tempfile.TemporaryDirectory() as d:
-            update.run_update(None, 1, ratings if isinstance(update, ALSUpdate)
-                              else lines, [], d, None)
+            update.run_update(None, 1, data, [], d, None)
 
     def build_model(update):
         with tempfile.TemporaryDirectory() as d:
-            update.build_model(None, ratings, [2, 0.1, 1.0], d)
+            if isinstance(update, RDFUpdate):
+                update.build_model(None, rdf_lines, [4, 2, "gini"], d)
+            else:
+                update.build_model(None, ratings, [2, 0.1, 1.0], d)
 
     return {
         "resolve": lambda **kw: resolve(**kw),
@@ -169,6 +188,13 @@ def _entry_points():
             3, True, device_dtype="int8", index_enabled=True, **kw),
         "IVFSnapshot.build": lambda **kw: IVFSnapshot.build(
             ["a", "b"], rows, 0, None, (rows, np.arange(2)), **kw),
+        "forest_train": lambda **kw: rdftrain.forest_train(
+            points, np.arange(4) % 2, [False] * 3, [0] * 3,
+            task=rdftrain.CLASSIFICATION, n_classes=2, num_trees=2,
+            max_depth=2, max_split_candidates=4,
+            rng=np.random.default_rng(0), **kw),
+        "RDFUpdate.build_model": lambda **kw: build_model(RDFUpdate(rdf_conf, **kw)),
+        "RDFUpdate.run_update": lambda **kw: run_update(RDFUpdate(rdf_conf, **kw)),
     }
 
 
