@@ -49,6 +49,28 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``top_n_batch(how_many=10)`` excluding their training items,
            checked against an exact float64 scan (overlap >= 0.99); the
            counters are read after it;
+  als_durability
+           trainer checkpoints and the layout cache on the train's batch
+           and Y₀, the launch counters set to 0 first and read last, the
+           first launch at each shape held against the plain version: a
+           train checkpointing every iteration (its factors bit-equal to
+           the train's; ``ckpt_wait_s``, the files, one save's bytes and
+           seconds), a resume from step 1 after every later file is
+           deleted (``ckpt_resumed_from`` 1, one more
+           ``oryx_checkpoint_resumes_total``, the factors within 1e-5 of
+           the uninterrupted run's, bit-equality reported) and a resume at
+           the final step (no kernel launched); one ``BlockedLayoutCache``
+           over the batch less a 1% row-wise extension (``full``), the
+           whole batch (``delta`` on both sides) and the same arrays again
+           (``reused``): pack seconds, blocks touched, peak device memory,
+           each cached side bit-equal to a fresh pack, schedules included,
+           the delta's factors bit-equal to the train's; the same share
+           held out of the first user block's users (``one_block``); and
+           two ``ALSUpdate.run_update`` with checkpoints on over the same
+           lines and offsets (the first ``DURABILITY_USERS`` users'), a
+           generation and its crash-restart: origins ``scratch`` then
+           ``resume``, one generation id ``"g" + fingerprint[:12]``, the
+           restart launching no kernel and publishing the same factors;
   serve_flagship
            1,000,000 items × 50 features (seeded), ``top_n_batch`` timed
            at batch 1, 16 and 256, top-10, checked against an exact scan;
@@ -304,8 +326,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            of each process's output are printed.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
-(``paths``: the launches of each wrapper in the loop's batch half
-``lambda_loop.batch``, in the k-means generation, in the loop's speed
+(``paths``: the launches of each wrapper in the durability phase
+``als_durability``, in the loop's batch half ``lambda_loop.batch``, in the k-means generation, in the loop's speed
 half ``lambda_loop.speed``, in the HTTP app's path ``serving_http``,
 where the last two must be all 0, in the serving representations'
 phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
@@ -340,6 +362,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -347,6 +370,7 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
+from oryx_tpu_torch.common import checkpoint as ck
 from oryx_tpu_torch.common import config as oryx_config
 from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
@@ -363,6 +387,7 @@ from oryx_tpu_torch.models.als import serving as serving_mod
 from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.rescorer import Rescorer, RescorerProvider
 from oryx_tpu_torch.models.als.serving import ALSServingModel, ALSServingModelManager
+from oryx_tpu_torch.models.als.update import ALSUpdate
 from oryx_tpu_torch.models.kmeans import pmml_codec
 from oryx_tpu_torch.models.kmeans import train as kmtrain
 from oryx_tpu_torch.models.kmeans.serving import KMeansServingModelManager
@@ -435,6 +460,15 @@ GENERATION_TIMESTAMP_MS = 1_760_000_000_000
 # one generation
 LOOP_USERS = 20_000
 LOOP_BROKER = "memory:smoke"
+
+# the durability phase: the layout cache's extension holds out 1% of the
+# entries; the generation pair (two ALS run_updates with checkpoints on,
+# a generation and its crash-restart) runs on the lines of the first
+# DURABILITY_USERS users, cut to half the loop's so the pair's host work
+# (parse, evaluation, part files) stays near one loop generation's
+DURABILITY_HOLDOUT = 0.01
+DURABILITY_USERS = 10_000
+DURABILITY_FP = "d" * 16
 BATCH_INTERVAL_S, SPEED_INTERVAL_S = 1.0, 2.0
 
 # the speed tier: the generation's held-out 10% (about 20,000 lines, the
@@ -1665,6 +1699,333 @@ def check_update_stream(sent, meta, train_users, known) -> dict:
     check(all(len(u[2]) == meta["features"] for u in ups),
           "lambda_loop: a vector of the wrong width")
     return {"model": 1, "y_ups": n_y, "x_ups": len(x_ups)}
+
+
+# -- ALS durability: checkpoints and the layout cache --------------------------
+
+
+def ckpt_counts() -> dict:
+    snap = metrics.default_registry().snapshot()
+    return {name: snap.get(f"oryx_checkpoint_{name}_total", {}).get("", 0.0)
+            for name in ("saves", "save_failures", "resumes", "bytes")}
+
+
+def launches_since(before: dict) -> dict:
+    return {w: K.LAUNCHES[w] - before[w] for w in ALS_WRAPPERS}
+
+
+def sides_equal(a, b) -> bool:
+    """Two packed sides' slabs, geometry and gather-Gramian schedules, bit
+    for bit."""
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("srows", "scols", "svals", "slens"))
+            and (a.block, a.n_blocks, a.slot_width, a.slot_chunk, a.n_rows)
+            == (b.block, b.n_blocks, b.slot_width, b.slot_chunk, b.n_rows)
+            and len(a.gg_schedules) == len(b.gg_schedules)
+            and all(torch.equal(p.work, q.work) and torch.equal(p.split, q.split)
+                    and (p.units, p.split_units, p.unit_entries,
+                         p.max_entries_per_unit, p.slots)
+                    == (q.units, q.split_units, q.unit_entries,
+                        q.max_entries_per_unit, q.slots)
+                    for p, q in zip(a.gg_schedules, b.gg_schedules)))
+
+
+def row_extension(batch, rng, rows_below: "int | None" = None):
+    """The batch without DURABILITY_HOLDOUT of its entries (all that qualify
+    when ``rows_below`` limits them to the users under it), each held-out
+    entry the last of its user's row with another entry before it, and its
+    item kept elsewhere: the whole batch is then a row-wise extension of
+    the rest with no new id, the production shape of a new generation.
+    Returns (the rest, the held-out indices)."""
+    rows, cols = batch.rows, batch.cols
+    starts = np.r_[True, rows[1:] != rows[:-1]]
+    ends = np.r_[rows[1:] != rows[:-1], True]
+    cand = np.flatnonzero(ends & ~starts)
+    if rows_below is not None:
+        cand = cand[rows[cand] < rows_below]
+    n = min(len(cand), int(round(DURABILITY_HOLDOUT * len(rows))))
+    hold = np.sort(rng.choice(cand, n, replace=False))
+    n_items = len(batch.items)
+    lost = np.bincount(cols[hold], minlength=n_items)
+    hold = hold[np.bincount(cols, minlength=n_items)[cols[hold]] > lost[cols[hold]]]
+    keep = np.ones(len(rows), dtype=bool)
+    keep[hold] = False
+    return als_data.RatingBatch(rows[keep], cols[keep], batch.vals[keep],
+                                batch.users, batch.items), hold
+
+
+def durability_train(batch, y0, **kwargs):
+    """``als_train`` at the smoke's settings from the main train's Y₀."""
+    timings: dict = {}
+    before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    x, y = tr.als_train(batch, FEATURES, LAM, ALPHA, True, ITERATIONS,
+                        init_y=y0, timings=timings, **kwargs)
+    torch.cuda.synchronize()
+    timings["seconds"] = time.perf_counter() - t0
+    timings["launches"] = launches_since(before)
+    return x, y, timings
+
+
+def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path) -> dict:
+    """A train that checkpoints every iteration, equal to the plain train;
+    a resume from step 1 (every later file deleted, as a kill leaves them);
+    a resume at the final step, which must launch no kernel; one save's
+    bytes and seconds."""
+    out = {}
+    store = ck.CheckpointStore(root / "ckpt", keep=ITERATIONS)
+    counts0 = ckpt_counts()
+    x1, y1, t1 = durability_train(
+        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+    check(torch.equal(x1, x_plain) and torch.equal(y1, y_plain),
+          "als_durability: the checkpointed factors differ from the plain train's")
+    check(store.steps(DURABILITY_FP) == list(range(1, ITERATIONS + 1)),
+          f"als_durability: checkpoint steps {store.steps(DURABILITY_FP)}")
+    check(t1["launches"] == {w: ITERATIONS * blocks for w in ALS_WRAPPERS},
+          f"als_durability: checkpointed train launched {t1['launches']}")
+    out["checkpointed"] = {key: t1[key] for key in (
+        "seconds", "pack_s", "iter_s", "ckpt_wait_s", "ckpt_final_wait_s",
+        "ckpt_resumed_from", "launches")}
+    out["store_steps"] = store.steps(DURABILITY_FP)
+    out["file_bytes"] = [p.stat().st_size for _, _, p in store.entries()]
+
+    for _, step, path in store.entries():
+        if step > 1:
+            path.unlink()
+    resumes = ckpt_counts()["resumes"]
+    x2, y2, t2 = durability_train(
+        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+    check(t2["ckpt_resumed_from"] == 1
+          and ckpt_counts()["resumes"] == resumes + 1,
+          f"als_durability: resumed from {t2['ckpt_resumed_from']}")
+    check(t2["launches"] == {w: (ITERATIONS - 1) * blocks for w in ALS_WRAPPERS},
+          f"als_durability: the resume launched {t2['launches']}")
+    diff = max(float((x2 - x1).abs().max()), float((y2 - y1).abs().max()))
+    check(diff <= 1e-5, f"als_durability: resumed factors {diff} from the "
+          "uninterrupted run's (> 1e-5)")
+    out["resumed"] = {key: t2[key] for key in (
+        "seconds", "pack_s", "iter_s", "ckpt_wait_s", "ckpt_final_wait_s",
+        "ckpt_resumed_from", "launches")}
+    out["resumed"].update(max_abs_diff=diff, bit_equal=bool(
+        torch.equal(x2, x1) and torch.equal(y2, y1)))
+
+    x3, y3, t3 = durability_train(
+        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+    check(t3["ckpt_resumed_from"] == ITERATIONS and t3["iter_s"] == [],
+          f"als_durability: final-step resume from {t3['ckpt_resumed_from']}")
+    check(t3["launches"] == {w: 0 for w in ALS_WRAPPERS},
+          f"als_durability: the final-step resume launched {t3['launches']}")
+    check(torch.equal(x3, x2) and torch.equal(y3, y2),
+          "als_durability: the final-step resume is not the checkpoint's factors")
+    out["resumed_final"] = {key: t3[key] for key in (
+        "seconds", "pack_s", "ckpt_resumed_from", "launches")}
+
+    # one save alone, the card idle: submit to finish (fetch + write), and
+    # the store's write of the host arrays
+    cp = ck.TrainerCheckpointer(store, "e" * 16, 1)
+    t0 = time.perf_counter()
+    cp.submit(ITERATIONS, {"x": x_plain, "y": y_plain})
+    cp.finish()
+    save_s = time.perf_counter() - t0
+    host = {"x": x_plain.cpu().numpy(), "y": y_plain.cpu().numpy()}
+    t0 = time.perf_counter()
+    path = store.save("f" * 16, ITERATIONS, host, {})
+    out["save"] = {"bytes": path.stat().st_size, "submit_to_finish_s": save_s,
+                   "store_write_s": time.perf_counter() - t0}
+    counts = {k: v - counts0[k] for k, v in ckpt_counts().items()}
+    check(counts["save_failures"] == 0, f"als_durability: failed saves {counts}")
+    out["counters"] = counts
+    return out
+
+
+def layout_cache_runs(batch, y0, x_plain, y_plain, user_side, item_side,
+                      blocks: int, rng) -> dict:
+    """One ``BlockedLayoutCache`` over three trains: the batch less a 1%
+    row-wise extension (``full``), the whole batch (``delta`` on both
+    sides), the same arrays again (``reused``); each cached side against a
+    fresh pack of the same arrays, slabs and schedules; the delta's and the
+    reuse's factors against the plain train's (a fresh pack of the same
+    arrays, the same Y₀). Then, on a fresh cache, the same share held out
+    of the first user block's users only (``one_block``), where the user
+    side's delta re-derives one block."""
+    dev = user_side.srows.device
+    base, hold = row_extension(batch, rng)
+    fresh_base = tr.prepare_blocked(base, FEATURES, device=dev)
+    cache = tr.BlockedLayoutCache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mode, b, fresh in (("full", base, fresh_base),
+                           ("delta", batch, (user_side, item_side)),
+                           ("reused", batch, (user_side, item_side))):
+        t0 = time.perf_counter()
+        appended = cache.match_extension(b.rows, b.cols, b.vals)
+        match_s = time.perf_counter() - t0
+        x, y, t = durability_train(b, y0, layout_cache=cache)
+        check(t["pack_modes"] == {"user": mode, "item": mode},
+              f"als_durability: pack modes {t['pack_modes']}, expected {mode}")
+        check(t["launches"] == {w: ITERATIONS * blocks for w in ALS_WRAPPERS},
+              f"als_durability: the {mode} train launched {t['launches']}")
+        # the cache's sides, handed back as they are (the same arrays)
+        sides = tr.prepare_blocked(b, FEATURES, cache=cache, device=dev)
+        check(cache.last_modes == {"user": "reused", "item": "reused"},
+              f"als_durability: after the {mode} train the same arrays on "
+              f"{dev} packed as {cache.last_modes}")
+        check(all(sides_equal(c, f) for c, f in zip(sides, fresh)),
+              f"als_durability: the {mode} sides differ from a fresh pack")
+        if mode != "full":
+            check(torch.equal(x, x_plain) and torch.equal(y, y_plain),
+                  f"als_durability: the {mode} factors differ from a fresh "
+                  "pack's")
+        runs[mode] = {key: t[key] for key in (
+            "seconds", "pack_s", "pack_user_s", "pack_item_s", "pack_wait_s",
+            "pack_modes", "launches")}
+        runs[mode]["match_s"] = match_s
+        runs[mode]["appended"] = None if appended is None else len(appended)
+    torch.cuda.synchronize()
+    memory = {"allocated_before": mem0,
+              "peak_allocated": torch.cuda.max_memory_allocated(),
+              "allocated_after": torch.cuda.memory_allocated()}
+    del cache, fresh_base, sides
+
+    base1, hold1 = row_extension(batch, rng, rows_below=user_side.block)
+    cache = tr.BlockedLayoutCache()
+    one_block = {"held_out": len(hold1)}
+    for mode, b in (("full", base1), ("delta", batch)):
+        x, y, t = durability_train(b, y0, layout_cache=cache)
+        check(t["pack_modes"] == {"user": mode, "item": mode},
+              f"als_durability: one-block pack modes {t['pack_modes']}")
+        one_block[mode] = {key: t[key] for key in (
+            "pack_s", "pack_user_s", "pack_item_s", "pack_wait_s")}
+    check(torch.equal(x, x_plain) and torch.equal(y, y_plain),
+          "als_durability: the one-block delta's factors differ from a fresh "
+          "pack's")
+    del cache
+
+    def touched(held) -> dict:
+        return {"user": int(np.unique(batch.rows[held] // user_side.block).size),
+                "item": int(np.unique(batch.cols[held] // item_side.block).size)}
+
+    one_block["affected_blocks"] = touched(hold1)
+    return {"held_out": len(hold), "affected_blocks": touched(hold),
+            "blocks": {"user": user_side.n_blocks, "item": item_side.n_blocks},
+            "runs": runs, "device_memory": memory, "one_block": one_block}
+
+
+def durability_generation(lines, root: Path) -> dict:
+    """Two ``ALSUpdate.run_update`` calls with checkpoints on, each on a
+    fresh updater, over the same lines and input offsets: a generation, and
+    its crash-restart. The first trains from scratch and publishes
+    generation ``"g" + fingerprint[:12]``; the second resumes at the final
+    step, launches no kernel, and publishes the same generation id and the
+    same factors."""
+    conf = oryx_config.overlay_on({
+        "oryx.ml.eval.test-fraction": TEST_FRACTION,
+        "oryx.ml.eval.candidates": 1,
+        "oryx.als.hyperparams.lambda": LAM,
+        "oryx.als.hyperparams.features": FEATURES,
+        "oryx.als.hyperparams.alpha": ALPHA,
+        "oryx.als.iterations": ITERATIONS,
+        "oryx.batch.checkpoint.enabled": True,
+        "oryx.batch.checkpoint.dir": str(root / "generation-ckpt"),
+        "oryx.batch.checkpoint.interval-iterations": 1,
+    }, oryx_config.get_default())
+    messages = [KeyMessage(None, ln) for ln in lines]
+    out = []
+    for attempt in range(2):
+        update = ALSUpdate(conf)
+        producer = RecordingProducer()
+        context = types.SimpleNamespace(input_offsets={0: len(lines)},
+                                        input_watermark_ms=GENERATION_TIMESTAMP_MS)
+        model_dir = root / f"generation-model-{attempt}"
+        resumes = ckpt_counts()["resumes"]
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        update.run_update(context, GENERATION_TIMESTAMP_MS, messages, [],
+                          str(model_dir), producer)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launches_since(before)
+        cands = update.report["candidates"]
+        check(len(cands) == 1 and all("failed" not in c for c in cands.values()),
+              f"als_durability: generation candidates {cands}")
+        cand = next(iter(cands.values()))
+        check(producer.sent and producer.sent[0][0] == "MODEL",
+              "als_durability: the generation did not publish a MODEL first")
+        stamp = lineage.parse_stamp(producer.sent[0][2])
+        promoted = model_dir / str(GENERATION_TIMESTAMP_MS)
+        meta = als_codec.pmml_to_meta(pmmlutils.read(promoted / "model.pmml"))
+        factors = (read_part_files(promoted / meta["x_dir"]),
+                   read_part_files(promoted / meta["y_dir"]))
+        out.append({"run_update_s": run_s, "train_s": cand["train_s"],
+                    "blocks": cand["blocks"],
+                    "pack_s": cand["pack_s"], "iter_s": cand["iter_s"],
+                    "ckpt_wait_s": cand["ckpt_wait_s"],
+                    "ckpt_final_wait_s": cand["ckpt_final_wait_s"],
+                    "ckpt_resumed_from": cand["ckpt_resumed_from"],
+                    "launches": launches,
+                    "resumes": ckpt_counts()["resumes"] - resumes,
+                    "stamp": {k: stamp[k] for k in (
+                        "generation", "fingerprint", "origin", "offsets")},
+                    "factors": factors})
+    first, second = out
+    fp = first["stamp"]["fingerprint"]
+    blocks = sum(first["blocks"].values())
+    check(first["stamp"]["origin"] == "scratch" and fp
+          and first["stamp"]["generation"] == "g" + fp[:12],
+          f"als_durability: first publish's stamp {first['stamp']}")
+    check(first["launches"] == {w: ITERATIONS * blocks for w in ALS_WRAPPERS},
+          f"als_durability: the first generation launched {first['launches']}")
+    check(second["stamp"]["origin"] == "resume"
+          and second["stamp"]["fingerprint"] == fp
+          and second["stamp"]["generation"] == first["stamp"]["generation"]
+          and second["ckpt_resumed_from"] == ITERATIONS
+          and second["resumes"] == 1,
+          f"als_durability: the restart's stamp {second['stamp']}, resumed "
+          f"from {second['ckpt_resumed_from']}")
+    check(second["launches"] == {w: 0 for w in ALS_WRAPPERS},
+          f"als_durability: the restart launched {second['launches']}")
+    for (ids_a, mat_a), (ids_b, mat_b) in zip(first["factors"], second["factors"]):
+        check(ids_a == ids_b and np.array_equal(mat_a, mat_b),
+              "als_durability: the restart's MODEL holds other factors")
+    for run in out:
+        run["users"], run["items"] = (len(run["factors"][0][0]),
+                                      len(run["factors"][1][0]))
+        del run["factors"]
+    return {"lines": len(lines), "first": first, "restart": second}
+
+
+def als_durability_phase(batch, x_plain, y_plain, user_side, item_side,
+                         lines, rng) -> dict:
+    """The ``als_durability`` line (see the module docstring). The launch
+    counters are set to 0 at the start and read at the end; the first
+    launch at each shape is held against the plain version after it."""
+    y0 = tr.init_item_factors(item_side.padded_rows, len(batch.items), FEATURES,
+                              torch.Generator().manual_seed(SEED + 1),
+                              user_side.srows.device)
+    blocks = user_side.n_blocks + item_side.n_blocks
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="oryx-durability-") as tmp, \
+            FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                           (tr, "spd_solve_batched", spd_key)]) as first:
+        K.reset_launches()
+        out = {"checkpoint": checkpoint_runs(batch, y0, x_plain, y_plain,
+                                             blocks, Path(tmp))}
+        out["layout_cache"] = layout_cache_runs(batch, y0, x_plain, y_plain,
+                                                user_side, item_side, blocks, rng)
+        out["generation"] = durability_generation(lines, Path(tmp))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        counted = dict(K.SHAPE_LAUNCHES)
+    out["held_against_plain"] = hold_path_launches(first, counted, "als_durability")
+    out["launches"] = {w: launches[w] for w in ALS_WRAPPERS}
+    out["shape_launches"] = {launch_key(*key): c for key, c in counted.items()}
+    others = {k: v for k, v in launches.items() if k not in ALS_WRAPPERS and v}
+    check(not others, f"als_durability: other kernels launched: {others}")
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- ALS speed tier ---------------------------------------------------------
@@ -4533,6 +4894,19 @@ def main() -> int:
     check(n == expected, f"spd_solve_batched: {n} launches of {kernel} on the "
           f"main path, expected {expected}: {als_shape_launches}")
 
+    # checkpoints and the layout cache on the same batch and Y₀; the
+    # generation pair on the first DURABILITY_USERS users' lines
+    durability_lines = [ln for ln in lines
+                        if int(ln[1:ln.index(",")]) < DURABILITY_USERS]
+    durability = als_durability_phase(batch, x, y, user_side, item_side,
+                                      durability_lines,
+                                      np.random.default_rng(SEED + 29))
+    emit("als_durability", **durability, gpu=smi, reduced={
+        "generation": f"the lines of the first {DURABILITY_USERS} of "
+                      f"{N_USERS} users ({len(durability_lines)} lines), half "
+                      f"the loop's {LOOP_USERS}: two run_updates",
+        "iterations": f"{ITERATIONS}, the smoke's"})
+
     flagship, flagship_model, flagship_y, flagship_ids = serve_flagship(rng)
     emit("serve_flagship", **flagship)
     serving_quant = serving_quant_phase(flagship_model, flagship_y, flagship_ids, rng)
@@ -4639,6 +5013,8 @@ def main() -> int:
                           for w in serving_quant["launches"]},
         # the RDF family (trainer, generation, speed, HTTP) launches none
         "rdf_generation": rdf["launches"],
+        # checkpointed, resumed and cached trains and the generation pair
+        "als_durability": durability["launches"],
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too
@@ -4653,6 +5029,7 @@ def main() -> int:
     path_checks = {
         "lambda_loop.batch": generation["held_against_plain"],
         "kmeans_generation": km_update["generation"]["held_against_plain"],
+        "als_durability": durability["held_against_plain"],
     }
     print(json.dumps({"kernels": entries, "paths": paths,
                       "path_checks": path_checks, "gpu": smi,

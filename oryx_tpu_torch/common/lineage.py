@@ -24,8 +24,8 @@ held equal to it by ``tests/test_torch_mlupdate.py``, the serving half
 
 Generation ids are minted from the trainer's checkpoint fingerprint when
 there is one (``g`` + 12 hex chars), so a crash-restarted generation keeps
-its identity. Without a fingerprint (always, in the port: checkpointing is
-not ported) each publish mints a fresh unique id.
+its identity. Without a fingerprint (checkpointing off, the default) each
+publish mints a fresh unique id.
 """
 
 from __future__ import annotations

@@ -19,8 +19,6 @@ Nothing relies on a global current device.
 Beyond the reference, :attr:`MLUpdate.report` holds the host seconds of the
 last ``run_update``'s stages (split, each candidate's build and evaluation,
 promote, publish), so a caller can see where a generation's time went.
-Checkpointing (``make_checkpointer``) is not ported: a model family that
-would use it refuses the setting in its constructor.
 """
 
 from __future__ import annotations
@@ -120,6 +118,19 @@ class MLUpdate(BatchLayerUpdate):
         self, context, pmml, new_data, past_data, model_path: Path, producer
     ) -> None:
         """Hook (MLUpdate.java:139-146); default no-op."""
+
+    def make_checkpointer(self, fp: str, meta: "dict | None" = None):
+        """``oryx.batch.checkpoint.*`` → a ``TrainerCheckpointer`` keyed by
+        the candidate's data fingerprint, or None when checkpointing is
+        disabled. The candidate-loop resume contract every model family
+        shares: a killed batch layer re-runs ``run_update`` with the same
+        input slice (offsets were never committed), each candidate's
+        ``build_model`` recomputes the same fingerprint, and the trainer
+        resumes from the newest valid checkpoint instead of redoing the
+        generation — a kill -9 costs at most one checkpoint interval."""
+        from oryx_tpu_torch.common import checkpoint as ckpt_mod
+
+        return ckpt_mod.from_config(self.config, fp, meta=meta)
 
     def candidate_record(self, candidate_path) -> dict:
         """The report record of the candidate built in ``candidate_path``,

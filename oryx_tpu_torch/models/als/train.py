@@ -19,9 +19,16 @@ The port of the reference's ``models/als/train.py`` (single device):
     and the Cholesky solve remain for explicit ``fused_gramian=False`` /
     ``spd_kernel=False`` and for k past the kernels' gates.
 
+Across generations, :class:`BlockedLayoutCache` reuses the previous
+generation's packed sides (``reused``) or repacks only the blocks that
+appended entries touched (``delta``), bit-identical to a full pack; and
+``als_train(checkpointer=...)`` saves the factors every interval and
+resumes from the newest valid checkpoint (:mod:`oryx_tpu_torch.common.
+checkpoint`). Both are the reference's.
+
 Float32 products on the card run in full float32, never TF32
-(:func:`oryx_tpu_torch.common.device.resolve`). Mesh training, the
-layout cache and checkpointing are not ported yet.
+(:func:`oryx_tpu_torch.common.device.resolve`). Mesh training is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -98,6 +105,12 @@ class _BlockedSide:
     slot_width: int
     slot_chunk: int
     gg_schedules: "list[GatherGramianSchedule]"
+    # host masters (srows, scols, svals, slens as numpy), kept only when a
+    # BlockedLayoutCache owns the side so the next generation can repack an
+    # incremental delta instead of the whole batch. Never written in place:
+    # the delta path copies before writing (on the CPU the slabs above
+    # alias these arrays, as torch.from_numpy does)
+    np_slabs: "tuple | None" = None
 
     @property
     def padded_rows(self) -> int:
@@ -173,6 +186,7 @@ def make_blocked_side(
     n_block_multiple: int = 1,
     features: int | None = None,
     workers: int | None = None,
+    keep_np: bool = False,
     device=None,
 ) -> _BlockedSide:
     """Host-side slotted-COO construction (row-sorted → contiguous slots),
@@ -180,7 +194,8 @@ def make_blocked_side(
 
     ``slot_width=None`` picks T from the side's mean row degree;
     ``slot_chunk=None`` then sizes the scan chunk from T and ``features``
-    to stay inside the transient budget."""
+    to stay inside the transient budget. ``keep_np`` keeps the host slabs
+    on the side (``np_slabs``) for a later incremental repack."""
     dev = resolve(device)
     # sort by (row, col): row-major for contiguous slots, column-ascending
     # within each row so the per-slot gathers walk the factors in address
@@ -253,17 +268,285 @@ def make_blocked_side(
 
             _chunked_scatter(scatter, len(r), n_workers)
             del eb, es, pos
-    schedules = [
-        gather_gramian_schedule(torch.from_numpy(srows[i]),
-                                torch.from_numpy(slens[i]), block=block,
-                                slot_width=t, device=dev)
-        for i in range(n_blocks)
-    ]
+    return _side_from_slabs((srows, scols, svals, slens), n_rows, block, t,
+                            slot_chunk, dev, keep_np)
+
+
+def _block_schedule(slabs: tuple, b: int, block: int, t: int,
+                    dev) -> GatherGramianSchedule:
+    """Block ``b``'s gather-Gramian work units from the host slabs."""
+    srows, _, _, slens = slabs
+    return gather_gramian_schedule(torch.from_numpy(srows[b]),
+                                   torch.from_numpy(slens[b]), block=block,
+                                   slot_width=t, device=dev)
+
+
+def _side_from_slabs(slabs: tuple, n_rows: int, block: int, t: int,
+                     slot_chunk: int, dev, keep_np: bool,
+                     schedules: "list | None" = None) -> _BlockedSide:
+    """The side of host slabs ``(srows, scols, svals, slens)``: the slabs
+    on ``dev``, each block's schedule (built here unless given)."""
+    n_blocks = slabs[0].shape[0]
+    if schedules is None:
+        schedules = [_block_schedule(slabs, b, block, t, dev)
+                     for b in range(n_blocks)]
     return _BlockedSide(
-        *(torch.from_numpy(a).to(dev) for a in (srows, scols, svals, slens)),
+        *(torch.from_numpy(a).to(dev) for a in slabs),
         n_rows, block, n_blocks, t, slot_chunk, schedules,
+        np_slabs=slabs if keep_np else None,
     )
 
+
+def _delta_blocked_side(
+    old: _BlockedSide,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    block: int,
+    slot_chunk: "int | None",
+    slot_width: "int | None",
+    n_block_multiple: int,
+    features: "int | None",
+    appended_rows: np.ndarray,
+    device=None,
+) -> "_BlockedSide | None":
+    """Incremental repack: ``rows/cols/vals`` extend the cached side's
+    batch by entries touching ``appended_rows`` (wherever they sit in the
+    arrays — mid-array for the production row-sorted pipeline, the tail
+    for a raw concatenation). Only the BLOCKS those rows live in re-sort
+    and re-scatter, and only their gather-Gramian schedules are rebuilt
+    (all of them when S grew); every other block's slabs and schedule
+    carry over (their within-block slot layout depends only on their own
+    rows' degrees). Returns None when the layout geometry drifted — block
+    count, slot width, chunk, or a shrunk S — and a full pack is required.
+    The result, slabs and schedules, is bit-identical to a from-scratch
+    pack of the full batch: the global sort is stable on the (row, col)
+    key, and an affected block's entries keep their original relative
+    order whether sorted globally or alone. The host pack is the
+    reference's; the slabs end up on ``device``."""
+    if old.np_slabs is None:
+        return None
+    dev = resolve(device)
+    padded_rows = _padded_rows_for(n_rows, block, n_block_multiple)
+    n_blocks = padded_rows // block
+    if n_blocks != old.n_blocks or block != old.block:
+        return None
+    deg = np.bincount(rows.astype(np.int64), minlength=padded_rows)
+    (t, chunk, s_len, nslots_row, row_slot_start, bounds,
+     total_slots) = _layout_params(deg, len(rows), slot_chunk, slot_width,
+                                   block, features)
+    old_s = old.np_slabs[0].shape[1]
+    if t != old.slot_width or s_len < old_s:
+        return None
+
+    affected = np.unique(appended_rows // block).astype(np.int64)
+    o_srows, o_scols, o_svals, o_slens = old.np_slabs
+    pad_s = s_len - old_s
+    if pad_s:
+        # S grew: right-pad every block with empty slots — exactly the fill
+        # a full pack leaves there (owner = spill row, zeros elsewhere)
+        srows = np.full((n_blocks, s_len), block, dtype=np.int32)
+        srows[:, :old_s] = o_srows
+        scols = np.zeros((n_blocks, s_len, t), dtype=np.int32)
+        scols[:, :old_s] = o_scols
+        svals = np.zeros((n_blocks, s_len, t), dtype=np.float32)
+        svals[:, :old_s] = o_svals
+        slens = np.zeros((n_blocks, s_len), dtype=np.int32)
+        slens[:, :old_s] = o_slens
+    else:
+        srows, scols = o_srows.copy(), o_scols.copy()
+        svals, slens = o_svals.copy(), o_slens.copy()
+
+    # re-derive the affected blocks from scratch: all of their entries (old
+    # + appended) re-sort and re-scatter — the stable (row, col) sort of a
+    # block's own entries is independent of every other block's
+    srows[affected] = block
+    scols[affected] = 0
+    svals[affected] = 0
+    slens[affected] = 0
+    sel = np.flatnonzero(np.isin(rows // block, affected))
+    if len(sel):
+        r_all, c_all, v_all = rows[sel], cols[sel], vals[sel]
+        span = np.int64(c_all.max()) + 1
+        order = np.argsort(r_all.astype(np.int64) * span + c_all,
+                           kind="stable")
+        rr = r_all[order].astype(np.int64)
+        cc = c_all[order].astype(np.int32)
+        vv = v_all[order].astype(np.float32)
+        # rank of each entry within its (col-sorted) row group: sel holds
+        # every entry of each affected block, so group ranks equal the full
+        # pack's per-row entry positions
+        p = _slot_rank(rr)
+        slot = row_slot_start[rr] + p // t
+        pos = (p % t).astype(np.int32)
+        eb = (rr // block).astype(np.int32)
+        es = (slot - bounds[eb]).astype(np.int32)
+        scols[eb, es, pos] = cc
+        svals[eb, es, pos] = vv
+        # per-slot owner rows + valid lengths for the affected rows
+        arows = np.unique(rr)
+        srow_f = np.repeat(arows, nslots_row[arows])
+        sb = (srow_f // block).astype(np.int32)
+        slot_in_row = _slot_rank(srow_f)
+        sidx = (row_slot_start[srow_f]
+                + slot_in_row - bounds[sb]).astype(np.int32)
+        srows[sb, sidx] = (srow_f % block).astype(np.int32)
+        slens[sb, sidx] = np.minimum(
+            deg[srow_f] - slot_in_row * t, t
+        ).astype(np.int32)
+    slabs = (srows, scols, svals, slens)
+    schedules = None  # S grew: every block's schedule is rebuilt
+    if not pad_s:
+        schedules = list(old.gg_schedules)
+        for b in affected:
+            schedules[b] = _block_schedule(slabs, int(b), block, t, dev)
+    return _side_from_slabs(slabs, n_rows, block, t, chunk, dev, True,
+                            schedules)
+
+
+def _slot_rank(srow_f: np.ndarray) -> np.ndarray:
+    """Rank of each element within its contiguous run of equal values
+    (0, 1, ... per run) — per-row slot ranks when fed owner-rows-per-slot,
+    per-row entry ranks when fed row-sorted entry rows."""
+    grp = np.flatnonzero(np.r_[True, srow_f[1:] != srow_f[:-1]])
+    return np.arange(len(srow_f), dtype=np.int64) - np.repeat(
+        grp, np.diff(np.r_[grp, len(srow_f)])
+    )
+
+
+class BlockedLayoutCache:
+    """Slotted-layout reuse across model generations (one per trainer).
+
+    Successive batch-tier generations mostly extend the previous batch,
+    and a full host pack re-sorts and re-scatters entries whose layout has
+    not moved. This cache keys on the previous generation's COO arrays per
+    side and picks the cheapest correct path:
+
+      * ``reused`` — arrays identical: hand back the SAME side (zero host
+        work, zero upload, the same schedules);
+      * ``delta`` — the new arrays extend the old (exact prefix, OR the
+        production shape: row-sorted with each row's old entries a prefix
+        of its new ones — what ``build_rating_batch``'s stable row sort
+        over the insertion-ordered aggregation dict emits) AND the layout
+        geometry held: only the blocks the appended entries touch re-sort,
+        re-scatter and get new schedules (:func:`_delta_blocked_side`);
+      * ``full`` — anything else (changed historical values — new events
+        aggregated into an existing pair, or time decay rewriting
+        strengths — a new id sorting mid-order and renumbering an axis,
+        different geometry or device, shrunk batch): full pack.
+
+    Results are bit-identical to a from-scratch pack in every mode,
+    schedules included (``tests/test_torch_checkpoint.py``). Cost: between
+    generations the cache retains the previous COO triple and host slab
+    copies AND pins the cached side's DEVICE slabs and schedules; during a
+    delta the old and new device slabs coexist. Drop the cache object to
+    reclaim everything. Not thread-safe; the batch tier packs one
+    generation at a time."""
+
+    def __init__(self):
+        self._arrays: "tuple | None" = None  # canonical (rows, cols, vals)
+        self._sides: dict = {}  # name -> (side, params)
+        self.last_modes: dict = {}
+
+    def match_extension(self, rows, cols, vals) -> "np.ndarray | None":
+        """Indices (into the new arrays) of the entries APPENDED since the
+        cached generation, or None when the new batch does not extend it.
+
+        Two shapes match. (1) Exact prefix — the new arrays literally start
+        with the old ones (how a raw log append looks). (2) Row-wise
+        extension — both generations row-sorted with each row's old entries
+        forming a prefix of its new entries, which is exactly what the
+        production pipeline produces: ``build_rating_batch`` stable-sorts
+        by row, and the aggregation dict keeps first-seen (user, item)
+        pairs ahead of newly seen ones within every row. A pair whose
+        VALUE changed (new events aggregated in, or time decay rewriting
+        history) fails the compare and falls back to a full pack.
+
+        One check against the CANONICAL batch triple covers both sides —
+        the item side's swapped (cols, rows, vals) view extends iff the
+        batch does (membership is per-entry, not per-ordering)."""
+        if self._arrays is None:
+            return None
+        o_r, o_c, o_v = self._arrays
+        n_old = len(o_r)
+        if len(rows) < n_old:
+            return None
+        if (np.array_equal(o_r, rows[:n_old])
+                and np.array_equal(o_c, cols[:n_old])
+                and np.array_equal(o_v, vals[:n_old])):
+            return np.arange(n_old, len(rows), dtype=np.int64)
+        if n_old == 0 or np.any(np.diff(rows) < 0) or np.any(np.diff(o_r) < 0):
+            return None
+        nr = int(max(rows[-1], o_r[-1])) + 1
+        deg_new = np.bincount(rows, minlength=nr)
+        deg_old = np.bincount(o_r, minlength=nr)
+        if np.any(deg_old > deg_new):
+            return None
+        new_start = np.zeros(nr + 1, dtype=np.int64)
+        np.cumsum(deg_new, out=new_start[1:])
+        old_start = np.zeros(nr + 1, dtype=np.int64)
+        np.cumsum(deg_old, out=old_start[1:])
+        # position of each old entry inside the new arrays: its row's new
+        # segment start plus its rank within the row (rows agree by
+        # construction once the degree test passed)
+        idx = new_start[o_r] + (np.arange(n_old, dtype=np.int64)
+                                - old_start[o_r])
+        if not (np.array_equal(cols[idx], o_c)
+                and np.array_equal(vals[idx], o_v)):
+            return None
+        appended = np.ones(len(rows), dtype=bool)
+        appended[idx] = False
+        return np.flatnonzero(appended)
+
+    def side(self, name: str, rows, cols, vals, n_rows, block, slot_chunk,
+             slot_width, n_block_multiple=1, features=None, workers=None,
+             appended_idx: "np.ndarray | None" = None,
+             device=None) -> _BlockedSide:
+        """Pack one side on ``device``, reusing the cached layout when
+        ``appended_idx`` (from :meth:`match_extension`) says the arrays
+        extend the cached batch. ``rows`` is THIS side's row view, so
+        ``rows[appended_idx]`` are the rows the appended entries touch on
+        this side."""
+        dev = resolve(device)
+        # "cuda" and "cuda:0" are one card: key the layout by the index
+        where = (dev.type, torch.cuda.current_device()
+                 if dev.type == "cuda" and dev.index is None else dev.index)
+        params = (block, slot_chunk, slot_width, n_block_multiple, features,
+                  where)
+        cached = self._sides.get(name)
+        old, old_params = cached if cached is not None else (None, None)
+        if old is not None and old_params == params \
+                and appended_idx is not None:
+            if appended_idx.size == 0 and old.n_rows == n_rows:
+                self.last_modes[name] = "reused"
+                return old
+            side = _delta_blocked_side(
+                old, rows, cols, vals, n_rows, block, slot_chunk,
+                slot_width, n_block_multiple, features,
+                rows[appended_idx], device=dev,
+            )
+            if side is not None:
+                self.last_modes[name] = "delta"
+                self._sides[name] = (side, params)
+                return side
+        side = make_blocked_side(
+            rows, cols, vals, n_rows, block, slot_chunk, slot_width,
+            n_block_multiple, features=features, workers=workers,
+            keep_np=True, device=dev,
+        )
+        self.last_modes[name] = "full"
+        self._sides[name] = (side, params)
+        return side
+
+    def store_batch(self, rows, cols, vals) -> None:
+        """Pin the generation's canonical arrays AFTER both sides packed
+        (the two sides share one COO, so the prefix test must see one
+        snapshot). COPIES, not references: a caller that mutates its batch
+        arrays in place (time decay rewriting ``vals``) and trains again
+        would otherwise have ``match_extension`` compare the cached triple
+        against itself and silently reuse pre-mutation slabs."""
+        self._arrays = (rows.copy(), cols.copy(), vals.copy())
 
 def _entry_weights(svals, slens, alpha, implicit, t):
     """Per-entry Gramian weight ``w`` and RHS coefficient ``coef`` (both
@@ -402,11 +685,22 @@ def _even_block(n_rows: int, features: int, ndev: int,
 
 
 def _side_packers(batch: RatingBatch, features: int, ndev: int, block_u: int,
-                  block_i: int, chunk, slot_width, workers, device):
-    """(pack_user, pack_item) closures."""
+                  block_i: int, chunk, slot_width, workers, device,
+                  cache: "BlockedLayoutCache | None" = None):
+    """(pack_user, pack_item) closures sharing one extension-match decision
+    — computed HERE, before either thread starts, so concurrent side packs
+    never race the cache's array comparison."""
     n_users, n_items = len(batch.users), len(batch.items)
+    appended = cache.match_extension(batch.rows, batch.cols, batch.vals) \
+        if cache is not None else None
 
     def pack_user() -> _BlockedSide:
+        if cache is not None:
+            return cache.side(
+                "user", batch.rows, batch.cols, batch.vals, n_users, block_u,
+                chunk, slot_width, ndev, features=features, workers=workers,
+                appended_idx=appended, device=device,
+            )
         return make_blocked_side(
             batch.rows, batch.cols, batch.vals, n_users, block_u, chunk,
             slot_width, ndev, features=features, workers=workers,
@@ -414,6 +708,12 @@ def _side_packers(batch: RatingBatch, features: int, ndev: int, block_u: int,
         )
 
     def pack_item() -> _BlockedSide:
+        if cache is not None:
+            return cache.side(
+                "item", batch.cols, batch.rows, batch.vals, n_items, block_i,
+                chunk, slot_width, ndev, features=features, workers=workers,
+                appended_idx=appended, device=device,
+            )
         return make_blocked_side(
             batch.cols, batch.rows, batch.vals, n_items, block_i, chunk,
             slot_width, ndev, features=features, workers=workers,
@@ -430,22 +730,30 @@ def prepare_blocked(
     chunk: int | None = None,
     slot_width: int | None = None,
     workers: int | None = None,
+    cache: "BlockedLayoutCache | None" = None,
     device=None,
 ) -> tuple[_BlockedSide, _BlockedSide]:
     """Pack both half-iteration sides with production block/chunk sizing —
     the same layout :func:`als_train` builds. The two sides pack
-    concurrently on big inputs."""
+    concurrently on big inputs. With a ``cache`` both sides go through it
+    and the batch is pinned as its new generation (``cache.last_modes``
+    says how each side was packed)."""
     dev = resolve(device)
     block_u = _even_block(len(batch.users), features, 1, block)
     block_i = _even_block(len(batch.items), features, 1, block)
     pack_user, pack_item = _side_packers(
         batch, features, 1, block_u, block_i, chunk, slot_width, workers, dev,
+        cache,
     )
     if _pack_workers(workers, len(batch.rows)) > 1:
         with cf.ThreadPoolExecutor(2) as pool:
             fu, fi = pool.submit(pack_user), pool.submit(pack_item)
-            return fu.result(), fi.result()
-    return pack_user(), pack_item()
+            sides = fu.result(), fi.result()
+    else:
+        sides = pack_user(), pack_item()
+    if cache is not None:
+        cache.store_batch(batch.rows, batch.cols, batch.vals)
+    return sides
 
 
 def init_item_factors(padded_rows: int, n_items: int, features: int,
@@ -488,7 +796,7 @@ def als_train(
     device=None,
     mesh=None,
     row_axis: str | None = None,
-    layout_cache=None,
+    layout_cache: "BlockedLayoutCache | None" = None,
     checkpointer=None,
 ):
     """Full alternating optimisation on one device; returns (X, Y) as
@@ -503,21 +811,32 @@ def als_train(
     **Pack/compute overlap**: the item side packs on a worker thread while
     the user side packs on the calling thread, and the first user
     half-iteration is queued on the device before the item pack is awaited.
-    ``timings``, when a dict is passed, receives ``pack_s`` (pack time on
-    the critical path), ``pack_user_s``/``pack_item_s``/``pack_wait_s``,
-    and ``iter_s``, the seconds of each iteration (measured by
+    With a ``layout_cache`` a repeated or appended generation's pack
+    collapses to a reuse or an incremental delta. ``timings``, when a dict
+    is passed, receives ``pack_s`` (pack time on the critical path),
+    ``pack_user_s``/``pack_item_s``/``pack_wait_s``, ``pack_modes`` (with
+    a cache), ``iter_s``, the seconds of each iteration run (measured by
     synchronising the device at iteration ends, which only a timed call
     does; the first also holds whatever of the item pack it waited for),
     and ``blocks``, each side's row-block count (a kernel launch per block
     and half-iteration, on the card).
 
-    ``mesh``, ``row_axis``, ``layout_cache`` and ``checkpointer`` are the
-    reference's multi-device, layout-reuse and checkpoint arguments; the
-    port does not support them yet and raises if one is given.
+    **Preemption tolerance**: ``checkpointer`` (a
+    :class:`oryx_tpu_torch.common.checkpoint.TrainerCheckpointer`) restores
+    the newest valid factor state for its data fingerprint before Y₀ and
+    saves ``{x, y}`` at exact size every interval (plus the final
+    iteration), each save handed to a background writer. A restored
+    checkpoint skips its completed iterations; a fully trained one returns
+    its factors at once and launches no kernel. A checkpoint whose shapes
+    differ trains from scratch with a warning. ``timings`` then also holds
+    ``ckpt_wait_s`` (mid-train stall), ``ckpt_final_wait_s`` and
+    ``ckpt_resumed_from``. Restore/save failures degrade to
+    from-scratch/skipped — checkpointing never fails a train.
+
+    ``mesh`` and ``row_axis`` are the reference's multi-device arguments;
+    the port does not support them yet and raises if one is given.
     """
-    for name, value in (("mesh", mesh), ("row_axis", row_axis),
-                        ("layout_cache", layout_cache),
-                        ("checkpointer", checkpointer)):
+    for name, value in (("mesh", mesh), ("row_axis", row_axis)):
         if value is not None:
             raise NotImplementedError(
                 f"als_train: {name} is not supported by the port yet")
@@ -535,6 +854,7 @@ def als_train(
     block_i = _even_block(n_items, k, 1, block)
     pack_user, pack_item = _side_packers(
         batch, k, 1, block_u, block_i, chunk, slot_width, None, dev,
+        layout_cache,
     )
     pool = cf.ThreadPoolExecutor(1, thread_name_prefix="oryx-als-pack")
     item_timing: dict = {}
@@ -545,6 +865,44 @@ def als_train(
         item_timing["s"] = time.perf_counter() - t0
         return side
 
+    def finish_item_pack() -> _BlockedSide:
+        t1 = time.perf_counter()
+        side = item_fut.result()
+        wait_s = time.perf_counter() - t1
+        if layout_cache is not None:
+            layout_cache.store_batch(batch.rows, batch.cols, batch.vals)
+        if timings is not None:
+            timings["pack_user_s"] = pack_user_s
+            timings["pack_item_s"] = item_timing.get("s", 0.0)
+            timings["pack_wait_s"] = wait_s
+            # pack cost on the critical path: the user pack plus however
+            # much of the item pack the first user half did not hide
+            timings["pack_s"] = pack_user_s + wait_s
+            timings["blocks"] = {"user": user_side.n_blocks,
+                                 "item": side.n_blocks}
+            if layout_cache is not None:
+                timings["pack_modes"] = dict(layout_cache.last_modes)
+        return side
+
+    def maybe_ckpt(completed: int, x, y) -> None:
+        if checkpointer is None or not checkpointer.wants(completed,
+                                                          iterations):
+            return
+        # exact-size slices: checkpoints are block-layout-agnostic, so a
+        # resume survives a changed block geometry
+        checkpointer.submit(completed, {"x": x[:n_users], "y": y[:n_items]})
+
+    def finish_ckpt() -> None:
+        if checkpointer is not None:
+            checkpointer.finish()
+            if timings is not None:
+                # wait_s = mid-train joins only (the overlap evidence); the
+                # final join mostly waits on the LAST iteration's device
+                # compute, which a plain train pays too
+                timings["ckpt_wait_s"] = checkpointer.wait_s
+                timings["ckpt_final_wait_s"] = checkpointer.final_wait_s
+                timings["ckpt_resumed_from"] = checkpointer.resumed_step
+
     # everything past the submit sits under the finally: a user-pack or
     # factor-init failure must still join the pack worker
     try:
@@ -553,11 +911,46 @@ def als_train(
         user_side = pack_user()
         pack_user_s = time.perf_counter() - t0
 
+        # resume: the newest valid checkpoint matching the data fingerprint
+        # replaces Y₀ (and skips its completed iterations); shape drift —
+        # a hyperparameter change that slipped past the fingerprint — falls
+        # back to a fresh start, never a bad gather
+        start_iter = 0
+        restored = None
+        if checkpointer is not None:
+            ck = checkpointer.restore()
+            if ck is not None:
+                rx, ry = ck.arrays.get("x"), ck.arrays.get("y")
+                if (rx is not None and ry is not None
+                        and rx.shape == (n_users, k)
+                        and ry.shape == (n_items, k)):
+                    restored = (np.asarray(rx, dtype=np.float32),
+                                np.asarray(ry, dtype=np.float32))
+                    start_iter = min(int(ck.step), iterations)
+                    checkpointer.mark_resumed(start_iter)
+                else:
+                    log.warning(
+                        "checkpoint %s does not match the current factor "
+                        "shapes; training from scratch", ck.path,
+                    )
+        if start_iter >= iterations:
+            # fully trained checkpoint (a crash between train end and
+            # publish): nothing to redo and no kernel to launch; the item
+            # pack is still joined so the timings and the cache stay sound
+            finish_item_pack()
+            finish_ckpt()
+            if timings is not None:
+                timings["iter_s"] = []
+            return (torch.from_numpy(restored[0]).to(dev),
+                    torch.from_numpy(restored[1]).to(dev))
+
         # Y₀ needs only the item side's PADDED SHAPE: the first user
         # half-iteration must not wait on the item pack
         padded_i = _padded_rows_for(n_items, block_i)
-        if init_y is not None:
-            y0 = torch.as_tensor(init_y, dtype=torch.float32)[:n_items]
+        if restored is not None or init_y is not None:
+            y0 = torch.as_tensor(
+                restored[1] if restored is not None else init_y,
+                dtype=torch.float32)[:n_items]
             if y0.shape != (n_items, k):
                 raise ValueError(
                     f"init_y must have at least {n_items} rows of {k} "
@@ -579,31 +972,24 @@ def als_train(
         iter_s = []
         t_iter = time.perf_counter()
         x = solve(user_side, y)  # queued while the item side still packs
-        t1 = time.perf_counter()
-        item_side = item_fut.result()
-        wait_s = time.perf_counter() - t1
+        item_side = finish_item_pack()
         y = solve(item_side, x)
-        for it in range(iterations):
-            if it:
+        for completed in range(start_iter + 1, iterations + 1):
+            if completed > start_iter + 1:
                 x = solve(user_side, y)
                 y = solve(item_side, x)
+            maybe_ckpt(completed, x, y)
             if timings is not None:
                 _sync(dev)
                 now = time.perf_counter()
                 iter_s.append(now - t_iter)
                 t_iter = now
+        finish_ckpt()
         if timings is not None:
-            timings["pack_user_s"] = pack_user_s
-            timings["pack_item_s"] = item_timing.get("s", 0.0)
-            timings["pack_wait_s"] = wait_s
-            # pack cost on the critical path: the user pack plus however
-            # much of the item pack the first user half did not hide
-            timings["pack_s"] = pack_user_s + wait_s
             timings["iter_s"] = iter_s
-            timings["blocks"] = {"user": user_side.n_blocks,
-                                 "item": item_side.n_blocks}
         return x[:n_users], y[:n_items]
     finally:
         # JOIN the worker on every exit: an orphaned item pack must not
-        # outlive this call
+        # outlive this call — or the ALSUpdate cache lock — and write its
+        # side into the shared layout cache mid-next-generation
         pool.shutdown(wait=True, cancel_futures=True)

@@ -15,17 +15,19 @@ results once users arrive).
 
 Device randomness: Y₀ comes from a ``torch.Generator`` of
 :func:`~oryx_tpu_torch.common.rand.torch_generator` where the reference
-splits ``rand.get_key()``. Not ported: trainer checkpoints (a config with
-``oryx.batch.checkpoint.enabled`` is refused at construction, so a
-generation never fails later with nothing published), the multi-device mesh
-and the slotted-layout cache (it changes no result; every generation packs
-anew).
+splits ``rand.get_key()``. As in the reference, each updater keeps one
+slotted-layout cache across its generations, and with
+``oryx.batch.checkpoint.enabled`` each candidate's trainer checkpoints
+under the generation's data fingerprint, which also names the published
+generation (a crash-restarted generation resumes and keeps its id). Not
+ported: the multi-device mesh.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
+from oryx_tpu_torch.common import checkpoint as ckpt_mod
 from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.ml import param as hp
@@ -51,10 +54,6 @@ class ALSUpdate(MLUpdate):
 
     def __init__(self, config, device=None):
         super().__init__(config, device=device)
-        if config.get_bool("oryx.batch.checkpoint.enabled", False):
-            raise NotImplementedError(
-                "oryx.batch.checkpoint.enabled: trainer checkpoints are not "
-                "ported yet")
         self.iterations = config.get_int("oryx.als.iterations")
         self.implicit = config.get_bool("oryx.als.implicit")
         self.log_strength = config.get_bool("oryx.als.logStrength")
@@ -69,6 +68,17 @@ class ALSUpdate(MLUpdate):
         ]
         if self.log_strength:
             self.hyper_params.append(hp.from_config(config, "oryx.als.hyperparams.epsilon"))
+        # slotted-layout reuse across generations: when the next
+        # generation's COO extends this one's (append-mostly input and no
+        # decay rewriting historical strengths), the host pack collapses to
+        # an incremental delta of the touched blocks. One cache per updater
+        # (generations build sequentially on the batch tier); concurrent
+        # hyperparameter candidates contend on the try-lock and simply pack
+        # uncached rather than interleave the cache's generations. The
+        # cache holds the last generation's slabs on the card: dropping
+        # the updater frees them
+        self._layout_cache = als_train_mod.BlockedLayoutCache()
+        self._layout_cache_lock = threading.Lock()
 
     def get_hyper_parameter_values(self):
         return list(self.hyper_params)
@@ -97,34 +107,74 @@ class ALSUpdate(MLUpdate):
         record["prepare_s"] = time.perf_counter() - t0
         if batch.nnz == 0 or len(batch.users) == 0 or len(batch.items) == 0:
             return None
+        # preemption tolerance: the checkpoint identity is the generation's
+        # DATA fingerprint — input-topic offsets (stamped on the context by
+        # the batch layer; None for direct/test callers), the candidate's
+        # hyperparameters, the batch shapes, and a CRC of the actual COO
+        # arrays — so a restarted generation resumes ONLY state built from
+        # exactly the data and settings it is about to train on. The same
+        # parts as the reference's, so both packages name the same file
+        checkpointer = None
+        if ckpt_mod.enabled(self.config):
+            fp = ckpt_mod.fingerprint(
+                kind="als",
+                offsets=getattr(context, "input_offsets", None),
+                features=features, lam=lam, alpha=alpha, epsilon=epsilon,
+                implicit=self.implicit, iterations=self.iterations,
+                dtype=self.compute_dtype,
+                shape=[len(batch.users), len(batch.items), int(batch.nnz)],
+                data_crc=ckpt_mod.data_crc(batch.rows, batch.cols,
+                                           batch.vals),
+            )
+            checkpointer = self.make_checkpointer(fp)
+        cache = (
+            self._layout_cache
+            if self._layout_cache_lock.acquire(blocking=False) else None
+        )
         timings: dict = {}
         t0 = time.perf_counter()
-        x, y = als_train_mod.als_train(
-            batch,
-            features=features,
-            lam=lam,
-            alpha=alpha,
-            implicit=self.implicit,
-            iterations=self.iterations,
-            generator=rand.torch_generator(),
-            dtype=self.compute_dtype,
-            timings=timings,
-            device=dev,
-        )
+        try:
+            x, y = als_train_mod.als_train(
+                batch,
+                features=features,
+                lam=lam,
+                alpha=alpha,
+                implicit=self.implicit,
+                iterations=self.iterations,
+                generator=rand.torch_generator(),
+                dtype=self.compute_dtype,
+                layout_cache=cache,
+                timings=timings,
+                checkpointer=checkpointer,
+                device=dev,
+            )
+        finally:
+            if cache is not None:
+                self._layout_cache_lock.release()
         x, y = x.cpu().numpy(), y.cpu().numpy()
         record.update(train_s=time.perf_counter() - t0, device=str(dev),
                       **timings)
-        # lineage identity for the generation's provenance stamp: no
-        # checkpoint fingerprint, so every generation starts from scratch.
+        # lineage identity for the generation's provenance stamp: the
+        # checkpoint fingerprint keeps the generation id stable across a
+        # crash-restart (same uncommitted offsets → same fp), and origin
+        # records whether this training resumed or started from scratch.
+        # Parallel candidates race last-writer-wins; exact for candidates=1.
         # Direct/test callers pass context=None — nothing to stamp onto.
         if context is not None:
-            context.lineage_fingerprint = None
-            context.lineage_origin = "scratch"
+            context.lineage_fingerprint = (
+                fp if checkpointer is not None else None
+            )
+            context.lineage_origin = (
+                "resume"
+                if checkpointer is not None and checkpointer.resumed_step
+                else "scratch"
+            )
         log.info(
             "ALS train: %d nnz, pack %.2fs on the critical path (user %.2fs"
-            " + item wait %.2fs)",
+            " + item wait %.2fs; modes %s)",
             batch.nnz, timings.get("pack_s", 0.0),
             timings.get("pack_user_s", 0.0), timings.get("pack_wait_s", 0.0),
+            timings.get("pack_modes"),
         )
         t0 = time.perf_counter()
         pmml = pmml_codec.model_to_pmml(

@@ -141,6 +141,9 @@ def test_unported_arguments_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, mesh=object(),
                      device="cpu")
+    with pytest.raises(NotImplementedError, match="row_axis"):
+        tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, row_axis="model",
+                     device="cpu")
     with pytest.raises(ValueError, match="compute dtype"):
         tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, dtype="bf16",
                      device="cpu")

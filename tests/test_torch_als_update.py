@@ -234,14 +234,6 @@ def test_up_stream_is_the_reference_stream(tmp_path, monkeypatch):
         assert all(len(u) == (3 if no_known else 4) for u in ups[n_y:])
 
 
-def test_checkpointing_is_refused_at_construction():
-    conf = cfg.overlay_on({"oryx.batch.checkpoint.enabled": True,
-                           "oryx.batch.checkpoint.dir": "/nonexistent"},
-                          cfg.get_default())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ALSUpdate(conf, device="cpu")
-
-
 # -- a whole generation, and the managers ---------------------------------------
 
 

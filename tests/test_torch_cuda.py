@@ -15,6 +15,7 @@ on the CPU.
 from __future__ import annotations
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -1000,3 +1001,131 @@ def test_rdf_forest_on_the_card_matches_the_cpu(cuda_device):
             assert all(np.array_equal(la[k], lb[k]) for k in la)
     assert first_tree_difference(runs[0][0], reg_cpu[0], runs[0][2], reg_cpu[2]) is None
     assert not any(K.LAUNCHES.values())
+
+
+# -- trainer checkpoints and the layout cache -----------------------------------
+
+
+def _ckpt_batch(seed, n_users=3000, n_items=400, nnz=30_000):
+    """Row-sorted implicit interactions, each (user, item) pair once."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_users, nnz).astype(np.int64)
+    cols = rng.integers(0, n_items, nnz).astype(np.int64)
+    keys = np.unique(rows * n_items + cols)
+    return RatingBatch((keys // n_items).astype(np.int32),
+                       (keys % n_items).astype(np.int32),
+                       np.ones(len(keys), np.float32), range(n_users),
+                       range(n_items))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_checkpoint_round_trips_through_the_store(cuda_device, tmp_path):
+    """A save of CUDA tensors (a slice among them) loads back as the same
+    float32 arrays, and the file is the reference's format."""
+    from oryx_tpu_torch.common import checkpoint as ck
+
+    store = ck.CheckpointStore(tmp_path)
+    cp = ck.TrainerCheckpointer(store, "a" * 16, interval=1)
+    x = torch.randn(1000, 50, device=cuda_device)
+    y = torch.randn(300, 50, device=cuda_device)
+    cp.submit(3, {"x": x[:900], "y": y})
+    cp.finish()
+    got = store.load_latest("a" * 16)
+    assert got.step == 3 and got.meta["completed"] == 3
+    assert np.array_equal(got.arrays["x"], x[:900].cpu().numpy())
+    assert np.array_equal(got.arrays["y"], y.cpu().numpy())
+    assert got.path.read_bytes().startswith(b"ORYXCKPT1 ")
+
+
+@pytest.mark.cuda
+def test_checkpoint_fetch_does_not_wait_for_later_work(cuda_device, tmp_path):
+    """The writer copies on a side stream that waits only on the event
+    recorded at ``submit``: with ~1 s of work queued on the caller's stream
+    after the submit, the save completes while that work still runs, and
+    holds the tensor as it was at the submit."""
+    from oryx_tpu_torch.common import checkpoint as ck
+
+    store = ck.CheckpointStore(tmp_path)
+    cp = ck.TrainerCheckpointer(store, "b" * 16, interval=1)
+    x = torch.randn(2000, 50, device=cuda_device)
+    want = x.cpu().numpy()
+    # load the add kernel now: a kernel's first launch under CUDA's lazy
+    # module loading may wait for the card, the sleep below included
+    x.clone().add_(1.0)
+    torch.cuda.synchronize()
+    rate = torch.cuda.get_device_properties(cuda_device).clock_rate  # kHz
+    t0 = time.perf_counter()
+    cp.submit(1, {"x": x})
+    torch.cuda._sleep(int(rate * 1e3))  # ~1 s of cycles on this stream
+    x.add_(1.0)  # queued behind the sleep: after the submit
+    cp.finish()
+    save_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy and save_s < 0.5, save_s
+    assert np.array_equal(store.load_latest("b" * 16).arrays["x"], want)
+
+
+@pytest.mark.cuda
+def test_layout_cache_delta_on_the_card_equals_a_full_pack(cuda_device):
+    """A row-wise extension that touches one of four user blocks: the
+    cache's ``delta`` sides on the card equal a fresh pack, slabs and
+    gather-Gramian schedules, and so do the factors trained from them."""
+    from chip_smoke import sides_equal
+
+    batch = _ckpt_batch(SEED + 7)
+    ends = np.flatnonzero(np.r_[batch.rows[1:] != batch.rows[:-1], True])
+    hold = ends[batch.rows[ends] < 700][:300]
+    keep = np.ones(len(batch.rows), bool)
+    keep[hold] = False
+    base = RatingBatch(batch.rows[keep], batch.cols[keep], batch.vals[keep],
+                       batch.users, batch.items)
+    cache = tr.BlockedLayoutCache()
+    kw = dict(block=750, device=cuda_device)
+    tr.prepare_blocked(base, 50, cache=cache, **kw)
+    got = tr.prepare_blocked(batch, 50, cache=cache, **kw)
+    assert cache.last_modes == {"user": "delta", "item": "delta"}
+    fresh = tr.prepare_blocked(batch, 50, **kw)
+    assert got[0].n_blocks == 4
+    assert all(sides_equal(g, f) for g, f in zip(got, fresh))
+    y0 = 0.1 * np.random.default_rng(SEED).standard_normal((400, 50)).astype(np.float32)
+    runs = [tr.als_train(batch, 50, 0.1, 1.0, True, 2, init_y=y0, block=750,
+                         layout_cache=c) for c in (cache, None)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # "cuda" and "cuda:0" name one card: the cached sides are handed back
+    again = tr.prepare_blocked(batch, 50, cache=cache, block=750,
+                               device="cuda:0")
+    assert cache.last_modes == {"user": "reused", "item": "reused"}
+    assert all(a is b for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_is_bit_equal(cuda_device, tmp_path):
+    """Checkpoint every iteration, delete every file after step 1 (what a
+    kill leaves), resume: the factors equal the uninterrupted run's bit
+    for bit (both kernels are deterministic); a resume at the final step
+    launches neither kernel."""
+    from oryx_tpu_torch.common import checkpoint as ck
+
+    batch = _ckpt_batch(SEED + 8)
+    y0 = 0.1 * np.random.default_rng(SEED).standard_normal((400, 50)).astype(np.float32)
+    store = ck.CheckpointStore(tmp_path, keep=4)
+
+    def train():
+        cp = ck.TrainerCheckpointer(store, "c" * 16, interval=1)
+        t: dict = {}
+        K.reset_launches()
+        x, y = tr.als_train(batch, 50, 0.1, 1.0, True, 4, init_y=y0,
+                            block=750, checkpointer=cp, timings=t)
+        return x, y, t["ckpt_resumed_from"], dict(K.LAUNCHES)
+
+    x1, y1, _, _ = train()
+    for _, step, path in store.entries():
+        if step > 1:
+            path.unlink()
+    x2, y2, resumed, launches = train()
+    assert resumed == 1 and launches["spd_solve_batched"] > 0
+    assert torch.equal(x1, x2) and torch.equal(y1, y2)
+    x3, y3, resumed, launches = train()
+    assert resumed == 4 and not any(launches.values())
+    assert torch.equal(x3, x2) and torch.equal(y3, y2)

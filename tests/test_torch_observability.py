@@ -2,9 +2,10 @@
 reference's tests and to the reference itself.
 
 The cases of ``tests/test_slo.py`` and ``tests/test_tsdb.py`` that need no
-JAX and no reference HTTP app, and the tracker case of
-``tests/test_lineage.py``, run here with the reference tests' own bodies
-rebound to the port's modules (:func:`_mirror`). ``/readyz``'s alert list
+JAX and no reference HTTP app, and the tracker case and the two ALS
+generation-id cases of ``tests/test_lineage.py`` (the latter with their
+generation helper restated on the port's ``ALSUpdate``), run here with the
+reference tests' own bodies rebound to the port's modules (:func:`_mirror`). ``/readyz``'s alert list
 is checked on the port's app. Then one parity case per module: the same
 series through both packages give the same burn rates and alerts, the same
 samples, trend alerts and history, and the same adoption timeline (times
@@ -38,6 +39,7 @@ from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics as metrics_mod
 from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import tsdb
+from oryx_tpu_torch.models.als.update import ALSUpdate
 
 # six xdist workers share the CPU with wall-clock gates elsewhere in the suite
 torch.set_num_threads(1)
@@ -119,6 +121,31 @@ for _name in _TSDB_CASES:
     globals()[f"{_name}_tsdb"] = _TSDB[_name]
 test_tracker_adoption_timeline_and_anon_models = _LINEAGE[
     "test_tracker_adoption_timeline_and_anon_models"]
+
+
+def _run_als_once(config, tmp_path, lines, offsets):
+    """``tests/test_lineage.py``'s generation helper on the port's
+    ``ALSUpdate`` (the reference's imports its own inside the body)."""
+    ctx = types.SimpleNamespace(input_offsets=dict(offsets),
+                                input_watermark_ms=int(time.time() * 1000))
+    producer = _LINEAGE["_RecordingProducer"]()
+    ALSUpdate(config, device="cpu").run_update(
+        ctx, int(time.time() * 1000),
+        [KeyMessage(None, ln) for ln in lines], [],
+        str(tmp_path / "model"), producer,
+    )
+    model_sends = [s for s in producer.sent if s[0] in ("MODEL", "MODEL-REF")]
+    assert len(model_sends) == 1, [s[0] for s in producer.sent]
+    return lineage.parse_stamp(model_sends[0][2])
+
+
+# the reference's two ALS lineage cases, their bodies run with the port's
+# generation helper above
+_LINEAGE["_run_als_once"] = _run_als_once
+test_crash_restart_keeps_generation_id_with_checkpointing = _LINEAGE[
+    "test_crash_restart_keeps_generation_id_with_checkpointing"]
+test_scratch_generations_mint_fresh_ids_without_checkpointing = _LINEAGE[
+    "test_scratch_generations_mint_fresh_ids_without_checkpointing"]
 
 
 @pytest.fixture(autouse=True)

@@ -97,7 +97,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             "models/rdf/pmml_codec.py", "models/rdf/update.py",
             "models/rdf/speed.py", "models/rdf/serving.py",
             "serving/resources/classreg.py", "common/federation.py",
-            "tools/trace_summary.py"} <= scanned
+            "tools/trace_summary.py", "common/checkpoint.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -160,6 +160,9 @@ def _entry_points():
         "als_train": lambda **kw: train.als_train(batch, 3, 0.1, 1.0, True, 1,
                                                   **kw),
         "prepare_blocked": lambda **kw: train.prepare_blocked(batch, 3, **kw),
+        "BlockedLayoutCache.side": lambda **kw: train.BlockedLayoutCache().side(
+            "user", batch.rows, batch.cols, batch.vals, 2, 32, None, None,
+            **kw),
         "init_item_factors": lambda **kw: train.init_item_factors(4, 2, 3,
                                                                   **kw),
         "ALSServingModel": lambda **kw: ALSServingModel(3, True, **kw),
