@@ -124,6 +124,29 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            must list each of its three launches once, and is printed in
            the ``kmeans_kernel`` line (``profile``,
            ``update_shape.profile``), the tree's in the ``rdf`` line;
+           inside the session a ``POST /debug/profile`` to a model-less
+           ``ServingLayer`` on the card must answer 409;
+  profiling
+           the device cost accounting (``common/profiling``, configured
+           at the start): the ALS train's and every ``als_durability``
+           train's (and generation's) ``oryx_device_calls_total{program=
+           als.train.user_half|item_half}`` deltas equal the halves run,
+           their FLOP and byte deltas calls × the registered cost, which
+           equals ``tr.half_cost`` of the sides' shapes where the sides are
+           known; first, right after the session closes, one real
+           ``POST /debug/profile?seconds=1`` with b256 ``top_n_batch``
+           calls on the 1M × 50 flagship in a thread: 200 and a readable
+           Chrome trace, its device events counted; the profiled
+           iteration's MFU and HBM share over its device-busy and its wall
+           time (FLOPs and bytes of ``tr.half_cost``, against 67 TFLOP/s
+           and 3.35 TB/s); ``oryx_device_mfu`` and
+           ``oryx_device_hbm_bandwidth_fraction`` read from the rendered
+           ``/metrics`` text after 2.5 s of b256 ``top_n_batch`` on the
+           flagship in f32 and in int8 (the rate window cut to 2 s), beside
+           the loop's own count; every share in (0, 1]; the quantized
+           bytes gauge; the ``cuda:0`` memory gauges equal to
+           ``torch.cuda``'s readings after a synchronise; the blackbox
+           bundle's ``memory`` section;
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
            the planted blobs through ``KMeansUpdate.build_model`` (the
@@ -273,13 +296,40 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            first request is among the calls); the mean batch must be above
            1 at 64 and 256; the layer's Y on the card; ``/readyz`` 200 with
            the model loaded, ``/metrics`` counting the ALS routes, 404 for
-           ``/nope`` and ``/debug/profile``; after ``close()`` no thread of
+           ``/nope``, 405 for ``GET /debug/profile``; after ``close()`` no thread of
            the layer and its port free. No kernel may launch. The k-means
            half runs inside ``kmeans_update`` (a small layer on an update
            topic of its own holding that phase's ``MODEL`` and speed
            ``UP``s: 1,000 ``/assign`` and ``/distanceToNearest`` against
            ``nearest_cluster``, 100 lines through ``POST /add`` onto its
            input topic) and is printed in this line as ``kmeans``.
+  serving_swap
+           the staged generation swap, inside the loop after
+           ``serving_http``: the loop's update stream (k = 50) copied to
+           a ``memory:`` topic as generation 1, and generation 2 from
+           ``ALSUpdate.run_update`` at k = 60 on the first
+           ``SWAP_USERS`` users' lines (the launch counters set to 0
+           first and read after, each first launch at a new shape held
+           against the plain version; its cost accounting checked). A
+           ``ServingLayer`` on the card with ``precompile-batches`` (the
+           staged swap: ``prewarm-swap`` at its default) warm on
+           generation 1, under closed-loop ``/recommend`` at 16
+           connections from a client process (``multiprocessing``, spawn),
+           is given generation 2's ``MODEL`` and ``UP``s after 8 s,
+           appended to its topic in one burst (as from another process):
+           the seconds from stage to promote, the warm ladder's, p50 / p99 and
+           statuses in the windows before the stage, staged (also without
+           the append's own seconds), and after the flip; no 5xx; each connection's generation headers gen-1 then
+           gen-2, never back; the promotion after generation 2's whole
+           ladder; ``oryx_serving_prewarmed_swaps_total`` + 1 and the
+           deadline counter + 0; then 100 users' ``/recommend`` against an
+           in-process generation 2. The same with ``prewarm-swap = false``
+           on a fresh layer (contrast): the windows before, while
+           generation 2 loads, after, and the answers from it while
+           loading. A bare manager with ``swap-deadline-sec = 0.2`` given
+           generation 2's ``MODEL`` alone behind generation 1 is promoted
+           by the deadline (counter + 1). No kernel launches but
+           generation 2's;
   deployment
            the same ALS loop as a deployment, last: five processes started
            through ``python -m oryx_tpu_torch.cli`` on one HOCON file (each
@@ -334,7 +384,8 @@ phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
 ``rdf_generation`` (all 0), and in the deployment's
 batch process
 ``deployment``, read from its bundle's ``oryx_device_calls_total`` and
-equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too;
+equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too,
+and in the staged swap's generation 2 at k = 60 ``serving_swap``;
 ``path_checks``:
 for each generation, one record per kernel and shape it launched at, that
 launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
@@ -370,11 +421,15 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
+from oryx_tpu_torch.common import blackbox
 from oryx_tpu_torch.common import checkpoint as ck
+from oryx_tpu_torch.common import compilecache
 from oryx_tpu_torch.common import config as oryx_config
 from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics
+from oryx_tpu_torch.common import profiling
+from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.lambda_rt.batch import BatchLayer
@@ -938,11 +993,12 @@ def iteration_fn(user_side, item_side, y):
 WINDOW = "chip_smoke.window"
 
 
-def device_profiles(windows: dict) -> dict:
+def device_profiles(windows: dict, during=None) -> dict:
     """Each function of ``windows`` once to warm up, then each once more,
     back to back, in ONE ``torch.profiler`` session, each inside a window
     of its own: per window, device time by kernel and the share of the
-    window's host wall time in which no kernel ran.
+    window's host wall time in which no kernel ran. ``during`` (no
+    argument) runs inside the session after the windows, in none of them.
 
     One session serves every window because on the H100 machines a session
     begun some seconds after the previous one ended has recorded no device
@@ -967,6 +1023,8 @@ def device_profiles(windows: dict) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 walls_us[name] = (time.perf_counter() - t0) * 1e6
+        if during is not None:
+            during()
     events = prof.events()
     opened = sorted((e.time_range.start, int(e.name.split(":")[1]))
                     for e in events if e.name.startswith(WINDOW + ":")
@@ -1006,6 +1064,216 @@ def window_profile(events, wall_us: float) -> dict:
         "kernels_ms": {n: us / 1e3 for n, us in top},
         "kernel_launches": {n: count[n] for n, _ in top},
     }
+
+
+# -- device cost accounting, memory telemetry, the profiler session -----------
+
+#: the window of the rate gauges while the profiling phase reads them
+PROFILING_WINDOW_S = 2.0
+PROFILING_BROKER = "memory:profiling"
+
+
+def rendered_gauge(text: str, name: str) -> float:
+    """A gauge's value in a Prometheus text rendering (``/metrics``'s)."""
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    check(m is not None, f"profiling: {name} missing from /metrics")
+    return float(m.group(1))
+
+
+def share(value: float, what: str) -> float:
+    """A share of the card's peak, which must lie in (0, 1]: above 1 the
+    count of work is wrong."""
+    check(0.0 < value <= 1.0, f"profiling: {what} = {value}, not in (0, 1]")
+    return value
+
+
+def iteration_roofline(user_side, item_side, nnz: int, profile: dict) -> dict:
+    """One profiled ALS iteration (``profiles["als_iteration"]``): its
+    attributed FLOPs and bytes (the two halves' ``tr.half_cost``) over its
+    device-busy time and over its wall time, against the H100's float32
+    peak and HBM rate."""
+    costs = [tr.half_cost(side, nnz, FEATURES, "float32")
+             for side in (user_side, item_side)]
+    flops, nbytes = sum(c[0] for c in costs), sum(c[1] for c in costs)
+    out = {"flops": flops, "bytes": nbytes, "peak_flops": PEAK_FLOPS[torch.float32],
+           "peak_bytes_per_s": HBM_BYTES_PER_S}
+    check("device_busy_ms" in profile,
+          f"profiling: the ALS iteration's profile recorded no device time: {profile}")
+    for name, ms in (("busy", profile["device_busy_ms"]), ("wall", profile["wall_ms"])):
+        out[f"{name}_ms"] = ms
+        out[f"mfu_{name}"] = share(flops / (ms / 1e3) / PEAK_FLOPS[torch.float32],
+                                   f"iteration MFU over its {name} time")
+        out[f"hbm_{name}"] = share(nbytes / (ms / 1e3) / HBM_BYTES_PER_S,
+                                   f"iteration HBM share over its {name} time")
+    return out
+
+
+def gauges_after_scan(model, qs, key: str, seconds: float) -> dict:
+    """``model.top_n_batch(qs, 10)`` back to back for ``seconds`` (at least
+    the rate window), then ``oryx_device_mfu`` and
+    ``oryx_device_hbm_bandwidth_fraction`` read from the rendered
+    ``/metrics`` text; beside them the same rates from the loop's own
+    count and host clock."""
+    model.top_n_batch(qs, 10)  # registers the signature's cost
+    torch.cuda.synchronize()
+    cost = profiling.costs().cost(key)
+    check(cost is not None, f"profiling: {key} registered no cost")
+    calls, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        model.top_n_batch(qs, 10)
+        calls += 1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    text = metrics.default_registry().render()
+    out = {"program": key, "flops_per_call": cost[0], "bytes_per_call": cost[1],
+           "calls": calls, "seconds": elapsed, "ms_per_call": elapsed / calls * 1e3,
+           "window_s": PROFILING_WINDOW_S,
+           "mfu_gauge": share(rendered_gauge(text, "oryx_device_mfu"),
+                              f"{key} oryx_device_mfu"),
+           "hbm_fraction_gauge": share(
+               rendered_gauge(text, "oryx_device_hbm_bandwidth_fraction"),
+               f"{key} oryx_device_hbm_bandwidth_fraction"),
+           "flops_per_s_gauge": rendered_gauge(text, "oryx_device_flops_per_second"),
+           "mfu_loop": calls * cost[0] / elapsed / profiling.peak_flops_per_s(),
+           "hbm_fraction_loop": calls * cost[1] / elapsed / profiling.peak_bytes_per_s()}
+    return out
+
+
+def memory_gauges_check() -> dict:
+    """The card's memory gauges (``oryx_device_memory_*{device="cuda:0"}``)
+    against ``torch.cuda``'s own readings, taken after a synchronise."""
+    torch.cuda.synchronize()
+    snap = metrics.default_registry().snapshot()
+    stats = torch.cuda.memory_stats(0)
+    label = 'device="cuda:0"'
+    got = {k: snap.get(f"oryx_device_memory_{k}", {}).get(label)
+           for k in ("bytes_in_use", "peak_bytes", "limit_bytes")}
+    want = {"bytes_in_use": float(stats["allocated_bytes.all.current"]),
+            "peak_bytes": float(stats["allocated_bytes.all.peak"]),
+            "limit_bytes": float(torch.cuda.mem_get_info(0)[1])}
+    check(got == want, f"profiling: memory gauges {got}, torch.cuda {want}")
+    return got
+
+
+def chrome_trace_events(trace_dir: str) -> dict:
+    """A capture's Chrome trace, read back: its events and kernel events."""
+    traces = list(Path(trace_dir).glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"profiling: {trace_dir} holds {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"events": len(events), "device_events": len(kernels),
+            "bytes": traces[0].stat().st_size,
+            "kernels": sorted({e.get("name", "")[:60] for e in kernels})[:8]}
+
+
+def profiling_layer(device=None):
+    """A ``ServingLayer`` on ``device`` (None: the card) with no model (an
+    empty update topic of its own): the ``POST /debug/profile`` route of a
+    live process."""
+    conf = oryx_config.overlay_on({
+        "oryx.id": "profiling",
+        "oryx.input-topic.broker": PROFILING_BROKER,
+        "oryx.update-topic.broker": PROFILING_BROKER,
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        "oryx.serving.api.read-only": True,
+    }, oryx_config.get_default())
+    return start_layer(conf, "profiling", device)
+
+
+def debug_profile_busy(port: int) -> dict:
+    """``POST /debug/profile`` while another torch profiler runs in this
+    process: 409."""
+    client = HttpClient(port)
+    try:
+        status, _, data = client.request("POST", "/debug/profile?seconds=1")
+    finally:
+        client.close()
+    check(status == 409, f"profiling: /debug/profile during the smoke's "
+          f"session: {status} {data[:200]!r}")
+    return {"status": status, "body": data.decode()[:160]}
+
+
+def debug_profile_capture(port: int, model, qs) -> dict:
+    """One real ``POST /debug/profile`` capture with top-N work on the
+    flagship inside its window (a thread calling ``top_n_batch``): 200 and
+    a readable Chrome trace; its count of device events is reported."""
+    stop = threading.Event()
+    calls = [0]
+
+    def work():
+        while not stop.is_set():
+            model.top_n_batch(qs, 10)
+            calls[0] += 1
+
+    worker = threading.Thread(target=work, daemon=True)
+    client = HttpClient(port)
+    worker.start()
+    try:
+        t0 = time.perf_counter()
+        status, _, data = client.request("POST", "/debug/profile?seconds=1")
+        capture_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        worker.join()
+        client.close()
+    check(status == 200, f"profiling: /debug/profile: {status} {data[:200]!r}")
+    body = json.loads(data)
+    # gated on a readable trace; its device events are reported (a
+    # session begun after another may record none: profiler_gap.py)
+    return {"status": status, "capture_s": capture_s, "top_n_calls": calls[0],
+            "trace": chrome_trace_events(body["trace_dir"])}
+
+
+def profiling_phase(layer_port: int, busy: dict, profiles: dict, user_side,
+                    item_side, nnz: int, flagship, rng) -> dict:
+    """The ``profiling`` line (see the module docstring). ``flagship`` is
+    the 1M × 50 model (:func:`flagship_model`), made before the smoke's
+    profiler session so that the ``/debug/profile`` capture comes first,
+    right after that session closes."""
+    t_phase = time.perf_counter()
+    model = flagship
+    qs = rng.standard_normal((256, FEATURES), dtype=np.float32)
+    out = {"debug_profile_during_session": busy,
+           "debug_profile": debug_profile_capture(layer_port, model, qs),
+           "peaks": {"flops": profiling.peak_flops_per_s(),
+                     "bytes_per_s": profiling.peak_bytes_per_s()},
+           "trains": list(TRAIN_COSTS)}
+    # the H100's figures from the device name: the gauges' yardstick is
+    # the bounds' (PEAK_FLOPS, HBM_BYTES_PER_S)
+    check(out["peaks"] == {"flops": PEAK_FLOPS[torch.float32],
+                           "bytes_per_s": HBM_BYTES_PER_S},
+          f"profiling: auto peaks {out['peaks']}, not the H100's")
+    out["iteration"] = iteration_roofline(user_side, item_side, nnz,
+                                          profiles["als_iteration"])
+    int8 = ALSServingModel(FEATURES, True, device_dtype="int8", device=model.device)
+    int8.y = model.y  # the same store
+    profiling.configure(oryx_config.overlay_on(
+        {"oryx.profiling.window-sec": PROFILING_WINDOW_S}, oryx_config.get_default()))
+    try:
+        out["scan_f32"] = gauges_after_scan(model, qs, "als.top_n_batch/b256",
+                                            PROFILING_WINDOW_S + 0.5)
+        out["scan_int8"] = gauges_after_scan(int8, qs, "als.top_n_batch/b256+int8",
+                                             PROFILING_WINDOW_S + 0.5)
+    finally:
+        profiling.configure(oryx_config.get_default())
+    # the int8 snapshot's bytes are among the quantized-factor gauge's
+    out["quantized_bytes"] = {
+        "snapshot": int8.y_snapshot().quantized_nbytes(),
+        "gauge": metrics.default_registry().snapshot()[
+            "oryx_device_quantized_factor_bytes"][""]}
+    check(out["quantized_bytes"]["gauge"] >= out["quantized_bytes"]["snapshot"] > 0,
+          f"profiling: quantized bytes {out['quantized_bytes']}")
+    del int8, model
+    torch.cuda.empty_cache()
+    out["memory_gauges"] = memory_gauges_check()
+    bundle = blackbox.bundle("smoke")
+    check("memory" in bundle and "cuda:0" in bundle["memory"]["devices"],
+          f"profiling: the bundle's memory section {bundle.get('memory')}")
+    out["bundle_memory"] = bundle["memory"]
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # -- serve ------------------------------------------------------------------
@@ -1754,20 +2022,64 @@ def row_extension(batch, rng, rows_below: "int | None" = None):
                                 batch.users, batch.items), hold
 
 
-def durability_train(batch, y0, **kwargs):
-    """``als_train`` at the smoke's settings from the main train's Y₀."""
+# -- device cost accounting (common/profiling) ---------------------------------
+
+HALVES = ("user_half", "item_half")
+COST_FAMILIES = ("oryx_device_calls_total", "oryx_device_flops_total",
+                 "oryx_device_bytes_total")
+#: each checked train's cost deltas, in run order, for the profiling line
+TRAIN_COSTS: list = []
+
+
+def check_train_costs(before: dict, calls: int, what: str, nnz=None,
+                      sides=None) -> dict:
+    """The trainer's cost accounting since the metrics snapshot ``before``:
+    each half recorded ``calls`` calls, and FLOP and byte deltas of calls ×
+    the half's registered cost; with ``sides`` (the train's packed user and
+    item sides) that cost must be ``tr.half_cost`` of the side's shape."""
+    after = metrics.default_registry().snapshot()
+    rec = {"train": what, "calls": calls, "sides_checked": sides is not None}
+    for half, side in zip(HALVES, sides or (None, None)):
+        label = f'program="als.train.{half}"'
+        n, flops, nbytes = (after.get(f, {}).get(label, 0.0)
+                            - before.get(f, {}).get(label, 0.0)
+                            for f in COST_FAMILIES)
+        cost = profiling.costs().cost(f"als.train.{half}")
+        check(n == calls and cost is not None,
+              f"profiling: {what}: {n} calls of als.train.{half} (cost "
+              f"{cost}), expected {calls}")
+        if side is not None:
+            want = tr.half_cost(side, nnz, FEATURES, "float32")
+            check(tuple(cost) == want, f"profiling: {what}: als.train.{half} "
+                  f"registered {cost}, the side's shape gives {want}")
+        for got, per_call, name in ((flops, cost[0], "FLOP"), (nbytes, cost[1], "byte")):
+            check(abs(got - calls * per_call) <= 1e-9 * max(calls * per_call, 1.0),
+                  f"profiling: {what}: als.train.{half} {name} delta {got}, "
+                  f"expected {calls} x {per_call}")
+        rec[half] = {"flops": flops, "bytes": nbytes, "cost": list(cost)}
+    TRAIN_COSTS.append(rec)
+    return rec
+
+
+def durability_train(batch, y0, sides=None, what: str = "durability", **kwargs):
+    """``als_train`` at the smoke's settings from the main train's Y₀; its
+    cost accounting checked (:func:`check_train_costs`, one call a half per
+    iteration run)."""
     timings: dict = {}
     before = dict(K.LAUNCHES)
+    costs0 = metrics.default_registry().snapshot()
     t0 = time.perf_counter()
     x, y = tr.als_train(batch, FEATURES, LAM, ALPHA, True, ITERATIONS,
                         init_y=y0, timings=timings, **kwargs)
     torch.cuda.synchronize()
     timings["seconds"] = time.perf_counter() - t0
     timings["launches"] = launches_since(before)
+    check_train_costs(costs0, len(timings["iter_s"]), what, batch.nnz, sides)
     return x, y, timings
 
 
-def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path) -> dict:
+def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path,
+                    sides) -> dict:
     """A train that checkpoints every iteration, equal to the plain train;
     a resume from step 1 (every later file deleted, as a kill leaves them);
     a resume at the final step, which must launch no kernel; one save's
@@ -1776,7 +2088,8 @@ def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path) -> dic
     store = ck.CheckpointStore(root / "ckpt", keep=ITERATIONS)
     counts0 = ckpt_counts()
     x1, y1, t1 = durability_train(
-        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+        batch, y0, sides, "checkpointed",
+        checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
     check(torch.equal(x1, x_plain) and torch.equal(y1, y_plain),
           "als_durability: the checkpointed factors differ from the plain train's")
     check(store.steps(DURABILITY_FP) == list(range(1, ITERATIONS + 1)),
@@ -1794,7 +2107,8 @@ def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path) -> dic
             path.unlink()
     resumes = ckpt_counts()["resumes"]
     x2, y2, t2 = durability_train(
-        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+        batch, y0, sides, "resumed",
+        checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
     check(t2["ckpt_resumed_from"] == 1
           and ckpt_counts()["resumes"] == resumes + 1,
           f"als_durability: resumed from {t2['ckpt_resumed_from']}")
@@ -1810,7 +2124,8 @@ def checkpoint_runs(batch, y0, x_plain, y_plain, blocks: int, root: Path) -> dic
         torch.equal(x2, x1) and torch.equal(y2, y1)))
 
     x3, y3, t3 = durability_train(
-        batch, y0, checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
+        batch, y0, sides, "resumed_final",
+        checkpointer=ck.TrainerCheckpointer(store, DURABILITY_FP, 1))
     check(t3["ckpt_resumed_from"] == ITERATIONS and t3["iter_s"] == [],
           f"als_durability: final-step resume from {t3['ckpt_resumed_from']}")
     check(t3["launches"] == {w: 0 for w in ALS_WRAPPERS},
@@ -1862,7 +2177,8 @@ def layout_cache_runs(batch, y0, x_plain, y_plain, user_side, item_side,
         t0 = time.perf_counter()
         appended = cache.match_extension(b.rows, b.cols, b.vals)
         match_s = time.perf_counter() - t0
-        x, y, t = durability_train(b, y0, layout_cache=cache)
+        x, y, t = durability_train(b, y0, fresh, f"layout_cache.{mode}",
+                                   layout_cache=cache)
         check(t["pack_modes"] == {"user": mode, "item": mode},
               f"als_durability: pack modes {t['pack_modes']}, expected {mode}")
         check(t["launches"] == {w: ITERATIONS * blocks for w in ALS_WRAPPERS},
@@ -1892,8 +2208,10 @@ def layout_cache_runs(batch, y0, x_plain, y_plain, user_side, item_side,
     base1, hold1 = row_extension(batch, rng, rows_below=user_side.block)
     cache = tr.BlockedLayoutCache()
     one_block = {"held_out": len(hold1)}
-    for mode, b in (("full", base1), ("delta", batch)):
-        x, y, t = durability_train(b, y0, layout_cache=cache)
+    for mode, b, sides in (("full", base1, None),
+                           ("delta", batch, (user_side, item_side))):
+        x, y, t = durability_train(b, y0, sides, f"one_block.{mode}",
+                                   layout_cache=cache)
         check(t["pack_modes"] == {"user": mode, "item": mode},
               f"als_durability: one-block pack modes {t['pack_modes']}")
         one_block[mode] = {key: t[key] for key in (
@@ -1941,12 +2259,16 @@ def durability_generation(lines, root: Path) -> dict:
         model_dir = root / f"generation-model-{attempt}"
         resumes = ckpt_counts()["resumes"]
         before = dict(K.LAUNCHES)
+        costs0 = metrics.default_registry().snapshot()
         t0 = time.perf_counter()
         update.run_update(context, GENERATION_TIMESTAMP_MS, messages, [],
                           str(model_dir), producer)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = launches_since(before)
+        # the first trains every iteration, the restart none
+        check_train_costs(costs0, 0 if attempt else ITERATIONS,
+                          f"generation.{'restart' if attempt else 'first'}")
         cands = update.report["candidates"]
         check(len(cands) == 1 and all("failed" not in c for c in cands.values()),
               f"als_durability: generation candidates {cands}")
@@ -2011,7 +2333,8 @@ def als_durability_phase(batch, x_plain, y_plain, user_side, item_side,
                            (tr, "spd_solve_batched", spd_key)]) as first:
         K.reset_launches()
         out = {"checkpoint": checkpoint_runs(batch, y0, x_plain, y_plain,
-                                             blocks, Path(tmp))}
+                                             blocks, Path(tmp),
+                                             (user_side, item_side))}
         out["layout_cache"] = layout_cache_runs(batch, y0, x_plain, y_plain,
                                                 user_side, item_side, blocks, rng)
         out["generation"] = durability_generation(lines, Path(tmp))
@@ -2887,6 +3210,10 @@ def lambda_loop_phase(lines, rng) -> dict:
             out = {"batch": loop_generation(loop, lines, rng)}
             out["speed"] = loop_speed(loop, lines, rng)
             out["serving_http"] = serving_http_phase(loop, rng)
+            # its own generator: the later phases' draws stay as they were
+            out["serving_swap"] = serving_swap_phase(
+                loop, [ln for ln in lines if int(ln[1:ln.index(",")]) < SWAP_USERS],
+                np.random.default_rng(SEED + 41))
             out["serving_quant_http"] = serving_quant_http(loop, rng)
             check(not loop.speed.stopped, "lambda_loop: the speed layer stopped")
         finally:
@@ -2936,11 +3263,15 @@ class HttpClient:
         self.conn.close()
 
 
-def check_same_top_n(got, want, label: str, field: str = "value") -> None:
+def check_same_top_n(got, want, label: str, field: str = "value",
+                     beyond=()) -> None:
     """``got`` (a body's ``[{"id", field}]``) against ``want`` (``(id,
     score)`` pairs): scores within ``HTTP_REL`` relative, and ids equal
     wherever neighbouring scores are not within it of each other (a near
-    tie may order its ids either way, but holds the same ids)."""
+    tie may order its ids either way, but holds the same ids). ``beyond``
+    holds the ``(id, score)`` pairs that rank just past ``want``'s cut: a
+    tie group that reaches the cut may hold one of those tied with it
+    instead (which side of the cut a tie falls on is a rounding)."""
     check(len(got) == len(want), f"{label}: {len(got)} results, expected {len(want)}")
     gs = [float(e[field]) for e in got]
     ws = [float(v) for _, v in want]
@@ -2950,9 +3281,12 @@ def check_same_top_n(got, want, label: str, field: str = "value") -> None:
     start = 0
     for j in range(1, len(got) + 1):
         if j == len(got) or not close(ws[j], ws[j - 1]):
-            check({e["id"] for e in got[start:j]} == {i for i, _ in want[start:j]},
-                  f"{label}: ids {[e['id'] for e in got]} differ from "
-                  f"{[i for i, _ in want]}")
+            ids = {e["id"] for e in got[start:j]}
+            allowed = {i for i, _ in want[start:j]}
+            if j == len(got):
+                allowed |= {i for i, v in beyond if close(float(v), ws[j - 1])}
+            check(ids <= allowed, f"{label}: ids {[e['id'] for e in got]} "
+                  f"differ from {[i for i, _ in want]} (beyond: {list(beyond)})")
             start = j
 
 
@@ -3152,15 +3486,17 @@ def check_routes_once(client, model, http_model, generation: str, rng) -> list:
 def check_recommend(client, model, users, generation: str, label: str) -> int:
     """``/recommend/{u}?howMany=10`` for ``users``, with and without
     ``considerKnownItems``, against the in-process model's ``top_n`` with
-    the same known items excluded. Returns the requests made."""
+    the same known items excluded (its 11th answer may stand in for the
+    10th where the two tie). Returns the requests made."""
     for u in users:
         uv = model.get_user_vector(u)
         for consider in (False, True):
             path = f"/recommend/{u}?howMany=10" + ("&considerKnownItems=true"
                                                   if consider else "")
-            want = model.top_n(uv, 10, excluded=None if consider
+            want = model.top_n(uv, 11, excluded=None if consider
                                else model.get_known_items(u))
-            check_same_top_n(client.json(path, generation), want, f"{label} {path}")
+            check_same_top_n(client.json(path, generation), want[:10],
+                             f"{label} {path}", beyond=want[10:])
     return 2 * len(users)
 
 
@@ -3280,10 +3616,12 @@ def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
                                 data.decode())
             check({"/recommend/{userID}", "/ingest", "/because/{userID}/{itemID}"}
                   <= set(routes), f"serving_http: /metrics routes {sorted(set(routes))}")
-            for method, path in (("GET", "/nope"), ("POST", "/debug/profile"),
-                                 ("GET", "/debug/profile")):
+            # the profiler route takes POST only (the profiling phase
+            # captures through it)
+            for method, path, want in (("GET", "/nope", 404),
+                                       ("GET", "/debug/profile", 405)):
                 status = client.request(method, path)[0]
-                check(status == 404, f"serving_http: {method} {path}: {status}")
+                check(status == want, f"serving_http: {method} {path}: {status}")
             out["readyz"] = {k: readyz[k]
                              for k in ("status", "model", "update_lag_messages")}
         finally:
@@ -3293,6 +3631,363 @@ def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
     out["launches"] = dict(K.LAUNCHES)
     check(not any(out["launches"].values()),
           f"serving_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the staged generation swap over HTTP ---------------------------------------
+
+SWAP_FEATURES = 60
+SWAP_USERS = DURABILITY_USERS
+SWAP_CONNECTIONS = 16
+SWAP_WINDOW_S = 8.0
+SWAP_CHECKED = 100
+SWAP_DEADLINE_S = 0.2
+SWAP_TIMESTAMP_MS = GENERATION_TIMESTAMP_MS + 1
+SWAP_COUNTERS = ("oryx_serving_prewarmed_swaps_total",
+                 "oryx_serving_swap_deadline_promotions_total")
+
+
+def swap_load(port: int, paths: list, concurrency: int, started_path: str,
+              stop_path: str, max_s: float) -> list:
+    """Closed-loop clients, run in a process of their own until the file
+    ``stop_path`` exists (or ``max_s`` pass): ``concurrency`` threads, each
+    on its own keep-alive connection, send ``GET`` requests for ``paths``
+    in turn, each waiting for its answer; the file ``started_path`` is
+    made once all are connected. Returns, per connection in order, each
+    request's ``(wall start, wall end, status, generation header)``; a
+    failed request has status 0."""
+    out = [[] for _ in range(concurrency)]
+    start = threading.Barrier(concurrency, action=lambda: Path(started_path).touch())
+    deadline = time.time() + max_s
+
+    def client(c: int) -> None:
+        conn = HttpClient(port)
+        mine = out[c]
+        start.wait()
+        j = c
+        try:
+            while time.time() < deadline and not Path(stop_path).exists():
+                t0 = time.time()
+                try:
+                    status, head, _ = conn.request("GET", paths[j % len(paths)])
+                    gen = head.get("x-oryx-model-generation")
+                except (OSError, http.client.HTTPException):
+                    status, gen = 0, None
+                    conn.close()
+                    conn = HttpClient(port)
+                mine.append((t0, time.time(), status, gen))
+                j += concurrency
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def swap_windows(per_conn: list, bounds: dict) -> dict:
+    """Per window ``name: (start, end)`` (wall seconds), the requests that
+    ended in it: count, statuses, p50 / p99 milliseconds. An empty or
+    reversed window counts nothing."""
+    flat = [r for conn in per_conn for r in conn]
+    out = {}
+    for name, (a, b) in bounds.items():
+        rows = [r for r in flat if a <= r[1] < b]
+        ms = np.sort(np.asarray([(e - s) * 1e3 for s, e, _, _ in rows]))
+        statuses: dict = {}
+        for r in rows:
+            statuses[str(r[2])] = statuses.get(str(r[2]), 0) + 1
+        out[name] = {"seconds": b - a, "requests": len(rows), "statuses": statuses,
+                     "p50_ms": float(np.percentile(ms, 50)) if len(ms) else None,
+                     "p99_ms": float(np.percentile(ms, 99)) if len(ms) else None}
+    return out
+
+
+def generation_order(per_conn: list, gen1: str, gen2: str) -> dict:
+    """Each connection's generation headers in order: gen-1, then gen-2,
+    never back. Returns the headers' counts and the connections that went
+    back."""
+    counts: dict = {}
+    back = []
+    for c, conn in enumerate(per_conn):
+        seen2 = False
+        for _, _, status, gen in conn:
+            counts[str(gen)] = counts.get(str(gen), 0) + 1
+            if gen == gen2:
+                seen2 = True
+            elif gen == gen1 and seen2:
+                back.append(c)
+                break
+    return {"headers": counts, "connections_back": back}
+
+
+def swap_generation(lines: list, device=None) -> dict:
+    """Generation 2: ``ALSUpdate.run_update`` at ``SWAP_FEATURES`` on
+    ``lines`` to a recording producer. The launch counters are set to 0
+    first and read after; its first launch at each shape is held against
+    the plain version."""
+    conf = oryx_config.overlay_on({
+        "oryx.ml.eval.test-fraction": TEST_FRACTION,
+        "oryx.ml.eval.candidates": 1,
+        "oryx.als.hyperparams.lambda": LAM,
+        "oryx.als.hyperparams.features": SWAP_FEATURES,
+        "oryx.als.hyperparams.alpha": ALPHA,
+        "oryx.als.iterations": ITERATIONS,
+    }, oryx_config.get_default())
+    update = ALSUpdate(conf, device=device)
+    producer = RecordingProducer()
+    context = types.SimpleNamespace(input_offsets={0: len(lines)},
+                                    input_watermark_ms=SWAP_TIMESTAMP_MS)
+    messages = [KeyMessage(None, ln) for ln in lines]
+    with tempfile.TemporaryDirectory(prefix="oryx-swap-") as tmp, \
+            FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                           (tr, "spd_solve_batched", spd_key)]) as first:
+        K.reset_launches()
+        costs0 = metrics.default_registry().snapshot()
+        t0 = time.perf_counter()
+        update.run_update(context, SWAP_TIMESTAMP_MS, messages, [], tmp, producer)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        counted = dict(K.SHAPE_LAUNCHES)
+    check_train_costs(costs0, ITERATIONS, "serving_swap.generation")
+    cand = next(iter(update.report["candidates"].values()))
+    blocks = sum(cand["blocks"].values())
+    check({w: launches[w] for w in ALS_WRAPPERS}
+          == {w: ITERATIONS * blocks for w in ALS_WRAPPERS},
+          f"serving_swap: generation 2 launched {launches}, expected "
+          f"{ITERATIONS} x {blocks} blocks")
+    ks = {shape[1] if kernel.startswith("spd") else shape[3]
+          for kernel, shape in counted}
+    check(ks == {SWAP_FEATURES},
+          f"serving_swap: launches at k = {ks}, not {SWAP_FEATURES}: {counted}")
+    check(producer.sent and producer.sent[0][0] == "MODEL",
+          "serving_swap: generation 2 did not publish a MODEL first")
+    stamp = lineage.parse_stamp(producer.sent[0][2])
+    check(stamp is not None, "serving_swap: generation 2's MODEL is not stamped")
+    return {"run_update_s": run_s, "train_s": cand["train_s"],
+            "blocks": cand["blocks"], "messages": len(producer.sent),
+            "generation": stamp["generation"], "sent": producer.sent,
+            "launches": {w: launches[w] for w in ALS_WRAPPERS},
+            "shape_launches": {launch_key(*key): c for key, c in counted.items()},
+            "held_against_plain": hold_path_launches(first, counted, "serving_swap")}
+
+
+def swap_run(conf, broker: str, gen1: list, gen2: list, ids: tuple, paths: list,
+             pool, prewarm: bool, tmp: Path, model2=None, users=(),
+             device=None) -> dict:
+    """One layer on the update topic of ``broker``, holding ``gen1``'s
+    stream, under closed-loop load at ``SWAP_CONNECTIONS`` from the client
+    process, given ``gen2``'s stream after ``SWAP_WINDOW_S``: the windows
+    before the stage, staged (or, without ``prewarm``, while generation 2
+    loads), and after the flip; generation 2's answers for ``users``
+    against ``model2`` once it is current."""
+    what = "serving_swap" if prewarm else "serving_swap.contrast"
+    gen1_id, gen2_id = ids
+    conf = conf.with_values({
+        "oryx.input-topic.broker": broker, "oryx.update-topic.broker": broker,
+        "oryx.compile.prewarm-swap": prewarm})
+    tp.maybe_create_topics(conf, "input-topic", "update-topic")
+    topic = conf.get_string("oryx.update-topic.message.topic")
+    # appended straight to the broker: a generation published by another
+    # process lands as a burst, not at the rate of sends from this one
+    # (whose host time would compete with the layer's)
+    log = tp.get_broker(broker)
+    for key, message, headers in gen1:
+        log.append(topic, key, message, headers)
+    n1 = len(gen1)
+    counters0 = {name: metrics.default_registry().snapshot().get(name, {}).get("", 0.0)
+                 for name in SWAP_COUNTERS}
+    compilecache.warmup_state().reset()
+    layer, port, t_start, threads = start_layer(conf, what, device)
+    out: dict = {"prewarm_swap": prewarm, "gen1_messages": n1, "gen2_messages": len(gen2)}
+    flips, ladders = [], []
+    stop_path = tmp / f"stop-{int(prewarm)}"
+    started_path = tmp / f"started-{int(prewarm)}"
+    try:
+        t_ready = wait_until(lambda: applied_messages(layer) >= n1
+                             and layer._warmer.warmed_models >= 1, 300,
+                             f"{what}: generation 1 loaded and warm")
+        out["gen1_ready_s"] = t_ready - t_start
+        manager, warmer = layer.manager, layer._warmer
+        promote, warm = manager.promote_staged, warmer._warm_model
+
+        def recorded_promote(expected=None):
+            done = promote(expected=expected)
+            flips.append((time.time(), done))
+            return done
+
+        def recorded_warm(model):
+            t0 = time.time()
+            ok = warm(model)
+            ladders.append({"features": model.features, "start": t0,
+                            "end": time.time(), "ok": ok})
+            return ok
+
+        # the warmer and the consumer look these up at each call
+        manager.promote_staged = recorded_promote
+        warmer._warm_model = recorded_warm
+        load = pool.apply_async(swap_load, (port, paths, SWAP_CONNECTIONS,
+                                            str(started_path), str(stop_path), 600))
+        wait_until(started_path.exists, 120, f"{what}: the client process")
+        time.sleep(SWAP_WINDOW_S)
+        mono_to_wall = time.time() - time.monotonic()
+        t_send = time.time()
+        for key, message, headers in gen2:
+            log.append(topic, key, message, headers)
+        t_appended = time.time()
+        out["gen2_append_s"] = t_appended - t_send
+        wait_until(lambda: manager.get_model().features == SWAP_FEATURES, 120,
+                   f"{what}: generation 2 in service", poll=0.001)
+        t_live = time.time()
+        wait_until(lambda: applied_messages(layer) >= n1 + len(gen2)
+                   and manager.get_model().get_fraction_loaded() == 1.0, 120,
+                   f"{what}: generation 2 applied", poll=0.001)
+        t_loaded = time.time()
+        out["append_to_loaded_s"] = t_loaded - t_send
+        time.sleep(SWAP_WINDOW_S)
+        t_stop = time.time()
+        stop_path.touch()
+        per_conn = load.get(120)
+        t_first = min(conn[0][1] for conn in per_conn if conn)
+        if prewarm:
+            check(len(flips) >= 1 and flips[-1][1],
+                  f"{what}: no prewarmed promotion: {flips}")
+            t_stage = manager._staged_at + mono_to_wall
+            t_flip = next(t for t, done in flips if done)
+            gen2_ladder = [lad for lad in ladders if lad["features"] == SWAP_FEATURES]
+            check(gen2_ladder and gen2_ladder[-1]["ok"]
+                  and gen2_ladder[-1]["end"] <= t_flip,
+                  f"{what}: generation 2's ladder {gen2_ladder} did not finish "
+                  f"before the flip at {t_flip}")
+            out.update(stage_to_promote_s=t_flip - t_stage,
+                       append_to_stage_s=t_stage - t_send,
+                       warm_ladder_s=gen2_ladder[-1]["end"] - gen2_ladder[-1]["start"],
+                       append_to_promote_s=t_flip - t_send)
+            # the staged window also without the burst's own append (host
+            # time of this process, which a publisher elsewhere would not take)
+            bounds = {"before": (t_first, t_stage), "staged": (t_stage, t_flip),
+                      "staged_after_append": (t_appended, t_flip),
+                      "after": (t_flip, t_stop)}
+        else:
+            out.update(append_to_live_s=t_live - t_send)
+            bounds = {"before": (t_first, t_send), "loading": (t_send, t_loaded),
+                      "loading_after_append": (t_appended, t_loaded),
+                      "after": (t_loaded, t_stop)}
+        out["windows"] = swap_windows(per_conn, bounds)
+        out["order"] = generation_order(per_conn, gen1_id, gen2_id)
+        flat = [r for conn in per_conn for r in conn]
+        out["requests"] = len(flat)
+        out["server_errors"] = sum(1 for r in flat if r[2] >= 500)
+        out["failed"] = sum(1 for r in flat if r[2] == 0)
+        # answers from a generation 2 still loading: after its MODEL was
+        # sent and before it was wholly applied, any non-200 or gen-2 answer
+        out["answers_from_loading_gen2"] = sum(
+            1 for r in flat if t_send <= r[1] < t_loaded
+            and (r[2] != 200 or r[3] == gen2_id))
+        out["counters"] = {name: metrics.default_registry().snapshot().get(
+            name, {}).get("", 0.0) - counters0[name] for name in SWAP_COUNTERS}
+        out["ladders"] = [{"features": lad["features"], "ok": lad["ok"],
+                           "seconds": lad["end"] - lad["start"]} for lad in ladders]
+        if model2 is not None:
+            client = HttpClient(port)
+            try:
+                t0 = time.perf_counter()
+                n = check_recommend(client, model2, users, gen2_id, what)
+                out["gen2_answers_checked"] = {"users": len(users), "requests": n,
+                                               "seconds": time.perf_counter() - t0}
+            finally:
+                client.close()
+    finally:
+        stop_path.touch()
+        out.update(close_layer(layer, port, what, threads))
+        compilecache.warmup_state().reset()
+    return out
+
+
+def swap_deadline(gen1_model, gen2_model, device=None) -> dict:
+    """A bare manager with ``swap-deadline-sec`` = ``SWAP_DEADLINE_S`` and
+    no warmer: generation 1's ``MODEL`` goes live, generation 2's (no
+    ``UP``) is staged, and the first ``get_model()`` past the deadline
+    promotes it; the deadline counter gains 1."""
+    manager = ALSServingModelManager(oryx_config.overlay_on({
+        "oryx.serving.compute.precompile-batches": True,
+        "oryx.compile.swap-deadline-sec": SWAP_DEADLINE_S,
+    }, oryx_config.get_default()), device=device)
+    name = "oryx_serving_swap_deadline_promotions_total"
+    before = metrics.default_registry().snapshot().get(name, {}).get("", 0.0)
+    manager.consume_key_message("MODEL", gen1_model)
+    manager.consume_key_message("MODEL", gen2_model)
+    check(manager.get_model().features == FEATURES
+          and manager.get_staged_model().features == SWAP_FEATURES,
+          "serving_swap: generation 2 was not staged behind generation 1")
+    time.sleep(SWAP_DEADLINE_S + 0.05)
+    check(manager.get_model().features == SWAP_FEATURES
+          and manager.get_staged_model() is None,
+          "serving_swap: the deadline did not promote generation 2")
+    delta = metrics.default_registry().snapshot().get(name, {}).get("", 0.0) - before
+    check(delta == 1, f"serving_swap: deadline counter +{delta}, expected +1")
+    return {"deadline_s": SWAP_DEADLINE_S, "promoted": True, "counter_delta": delta}
+
+
+def serving_swap_phase(loop: "LambdaLoop", lines: list, rng, device=None) -> dict:
+    """The ``serving_swap`` line (see the module docstring). ``device``:
+    the layers' and the generation's (None: the card; the tests run it on
+    the CPU)."""
+    t_phase = time.perf_counter()
+    n1 = loop.update_size()
+    gen1 = [(km.key, km.message, km.headers)
+            for km in loop.broker.read(loop.update_topic, 0, n1)]
+    check(len(gen1) == n1 and gen1[0][0] == "MODEL",
+          "serving_swap: the loop's update topic does not start with its MODEL")
+    gen1_id = lineage.parse_stamp(gen1[0][2])["generation"]
+    out: dict = {"gen1": {"messages": n1, "generation": gen1_id,
+                          "features": FEATURES}}
+    gen = swap_generation(lines, device)
+    sent = gen.pop("sent")
+    out["gen2"] = gen
+    check(gen["generation"] != gen1_id, "serving_swap: both generations share an id")
+    model2 = ALSServingModelManager(loop.conf, device=device)
+    for key, message, _ in sent:
+        model2.consume_key_message(key, message)
+    model2 = model2.get_model()
+    check(model2.features == SWAP_FEATURES and model2.get_fraction_loaded() == 1.0,
+          "serving_swap: the in-process generation 2 is not loaded")
+    users1 = set(loop.serving.get_model().all_user_ids())
+    users = sorted(u for u in model2.all_user_ids() if u in users1)
+    sample = [users[j] for j in rng.choice(len(users), HTTP_USERS, replace=False)]
+    paths = [f"/recommend/{u}?howMany=10" for u in sample]
+    conf = loop.conf.with_values({
+        "oryx.id": "swap",
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        "oryx.serving.api.read-only": True,
+        "oryx.serving.compute.precompile-batches": True,
+    })
+    ids = (gen1_id, gen["generation"])
+    with tempfile.TemporaryDirectory(prefix="oryx-swap-load-") as tmp, \
+            mp.get_context("spawn").Pool(1) as pool:
+        out["swap"] = swap_run(conf, "memory:swap", gen1, sent, ids, paths, pool,
+                               True, Path(tmp), model2, sample[:SWAP_CHECKED],
+                               device)
+        out["contrast"] = swap_run(conf, "memory:swap-contrast", gen1, sent, ids,
+                                   paths, pool, False, Path(tmp), device=device)
+    swap = out["swap"]
+    check(swap["server_errors"] == 0 and swap["failed"] == 0,
+          f"serving_swap: {swap['server_errors']} 5xx, {swap['failed']} failed")
+    check(not swap["order"]["connections_back"]
+          and set(swap["order"]["headers"]) == set(ids),
+          f"serving_swap: generation headers {swap['order']}")
+    check(swap["counters"] == {SWAP_COUNTERS[0]: 1.0, SWAP_COUNTERS[1]: 0.0},
+          f"serving_swap: counters {swap['counters']}")
+    out["deadline"] = swap_deadline(gen1[0][1], sent[0][1], device)
+    out["launches"] = gen["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4615,13 +5310,18 @@ def rdf_generation(conf, lines: list, micro: list) -> dict:
     """``RDFUpdate.run_update`` with one candidate on the lines (10% held
     out), published to a recording producer; its ``MODEL`` into an
     ``RDFServingModelManager`` and an ``RDFSpeedModelManager``; the
-    microbatch's ``UP``s from the speed manager into the serving one."""
+    microbatch's ``UP``s from the speed manager into the serving one. The
+    generation's draws (the hold-out split, the forest) come from the fixed
+    ``SEED`` through ``rand.seeded``, scoped to this call, so the hold-out
+    accuracy gate is the same on every run and no later phase's draws
+    change."""
     update = RDFUpdate(conf)
     producer = RecordingProducer()
     with tempfile.TemporaryDirectory(prefix="oryx-rdf-generation-") as model_dir:
         t0 = time.perf_counter()
-        update.run_update(None, GENERATION_TIMESTAMP_MS, lines, [], model_dir,
-                          producer)
+        with rand.seeded(SEED):
+            update.run_update(None, GENERATION_TIMESTAMP_MS, lines, [],
+                              model_dir, producer)
         run_s = time.perf_counter() - t0
         cands = update.report["candidates"]
         check(len(cands) == 1 and all("failed" not in c for c in cands.values()),
@@ -4787,6 +5487,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     dev = resolve(None)
+    # device cost accounting from the start: every later record counts
+    profiling.configure(oryx_config.get_default())
     smi = gpu_query()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
@@ -4855,12 +5557,14 @@ def main() -> int:
     # the main path: train, then serve the trained model
     K.reset_launches()
     timings: dict = {}
+    costs0 = metrics.default_registry().snapshot()
     t0 = time.perf_counter()
     x, y = tr.als_train(batch, FEATURES, LAM, ALPHA, True, ITERATIONS,
                         generator=torch.Generator().manual_seed(SEED + 1),
                         timings=timings)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    check_train_costs(costs0, ITERATIONS, "train", batch.nnz, (user_side, item_side))
     blocks = user_side.n_blocks + item_side.n_blocks
     expected = ITERATIONS * blocks
     check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(y).all()),
@@ -4907,10 +5611,10 @@ def main() -> int:
                       f"the loop's {LOOP_USERS}: two run_updates",
         "iterations": f"{ITERATIONS}, the smoke's"})
 
-    flagship, flagship_model, flagship_y, flagship_ids = serve_flagship(rng)
+    flagship, flagship_served, flagship_y, flagship_ids = serve_flagship(rng)
     emit("serve_flagship", **flagship)
-    serving_quant = serving_quant_phase(flagship_model, flagship_y, flagship_ids, rng)
-    del flagship_model, flagship_y, flagship_ids
+    serving_quant = serving_quant_phase(flagship_served, flagship_y, flagship_ids, rng)
+    del flagship_served, flagship_y, flagship_ids
     torch.cuda.empty_cache()
     emit("serving_quant", **serving_quant, gpu=smi, reduced={
         "flat": "none: the flagship's 1,000,000 x 50 seeded items, bench.py's "
@@ -4929,10 +5633,25 @@ def main() -> int:
     rdf_data = covtype_data(np.random.default_rng(SEED + 19), RDF_ROWS)
     rdf_data_s = time.perf_counter() - t0
     windows["rdf_tree"] = rdf_tree_window(rdf_data, dev)
-    profiles = device_profiles(windows)
+    # a live POST /debug/profile route, refused (409) inside the session;
+    # the flagship its capture serves from, made before the session
+    prof_layer, prof_port, _, prof_threads = profiling_layer()
+    prof_flagship, _, _ = flagship_model(np.random.default_rng(SEED + 43))
+    prof_flagship.y_snapshot()
+    busy: dict = {}
+    profiles = device_profiles(windows,
+                               during=lambda: busy.update(debug_profile_busy(prof_port)))
     del windows
     torch.cuda.empty_cache()
     emit("profile", **profiles["als_iteration"])
+    prof = profiling_phase(prof_port, busy, profiles, user_side, item_side,
+                           batch.nnz, prof_flagship, np.random.default_rng(SEED + 47))
+    del prof_flagship
+    prof.update(close_layer(prof_layer, prof_port, "profiling", prof_threads))
+    emit("profiling", **prof, gpu=smi, reduced={
+        "flagship": "none: the 1,000,000 x 50 flagship at batch 256",
+        "window": f"the rate gauges' window cut from 60 s to {PROFILING_WINDOW_S} s "
+                  "while the scans are timed, so the gauges read the scan alone"})
     record["profile"] = sweep_profile(profiles["1M x 64"], "1M x 64")
     record["update_shape"]["profile"] = sweep_profile(profiles["100k x 64"],
                                                       "100k x 64")
@@ -4962,9 +5681,16 @@ def main() -> int:
                  f"({len(loop_lines)} lines), as the deployment's",
         "microbatches": f"2 x {SPEED_MICROBATCH}, cut from 2 x 50000 with the users"}
     serving_http = loop.pop("serving_http")
+    serving_swap = loop.pop("serving_swap")
     quant_http = loop.pop("serving_quant_http")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
+    emit("serving_swap", **serving_swap, gpu=smi, reduced={
+        "generation_2": f"ALSUpdate.run_update at k = {SWAP_FEATURES} on the lines "
+                        f"of the first {SWAP_USERS} of the loop's {LOOP_USERS} users",
+        "windows": f"{SWAP_WINDOW_S} s of load before the stage and after "
+                   "generation 2 is applied",
+        "load": f"{SWAP_CONNECTIONS} connections over {HTTP_USERS} users"})
     emit("serving_quant_http", **quant_http, gpu=smi)
     generation, speed = loop["batch"], loop["speed"]
     # the same loop as a deployment of CLI processes over tcp:
@@ -5015,6 +5741,8 @@ def main() -> int:
         "rdf_generation": rdf["launches"],
         # checkpointed, resumed and cached trains and the generation pair
         "als_durability": durability["launches"],
+        # generation 2 of the staged swap at k = 60 (the layers launch none)
+        "serving_swap": serving_swap["launches"],
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too
@@ -5030,6 +5758,7 @@ def main() -> int:
         "lambda_loop.batch": generation["held_against_plain"],
         "kmeans_generation": km_update["generation"]["held_against_plain"],
         "als_durability": durability["held_against_plain"],
+        "serving_swap": serving_swap["gen2"]["held_against_plain"],
     }
     print(json.dumps({"kernels": entries, "paths": paths,
                       "path_checks": path_checks, "gpu": smi,

@@ -2,9 +2,9 @@
 events plus a one-file JSON postmortem bundle.
 
 A copy of the JAX package's ``oryx_tpu/common/blackbox.py`` (host code, no
-JAX). The bundle leaves out the device/host memory section, whose module
-(``profiling``) the port does not have yet. Its versions name
-``oryx_tpu_torch`` and torch.
+JAX). Its versions name ``oryx_tpu_torch`` and torch; its ``memory``
+section is ``profiling.memory_snapshot()`` (host RSS, and each card's
+allocated, peak and total bytes once the process has initialised CUDA).
 
 The framework survives faults (retries, quarantine, breaker, supervised
 restarts, torn-tail recovery), but a counter alone does not explain one —
@@ -241,6 +241,12 @@ def bundle(reason: str = "on-demand", history: "dict | None" = None) -> dict:
         }
     except Exception as e:  # noqa: BLE001
         out["traces_error"] = str(e)
+    try:
+        from oryx_tpu_torch.common import profiling
+
+        out["memory"] = profiling.memory_snapshot()
+    except Exception as e:  # noqa: BLE001
+        out["memory_error"] = str(e)
     try:
         from oryx_tpu_torch.common import slo
 

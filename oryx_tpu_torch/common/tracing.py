@@ -1,18 +1,17 @@
-"""Per-step timing behind config flags.
+"""Per-step timing + optional device profiling, behind config flags.
 
 The port of the JAX package's ``oryx_tpu/common/tracing.py`` (host code,
-no JAX). Each layer wraps its generation/microbatch work in a
-``StepTracer.step(...)`` that
+no JAX; torch only inside a capture). Each layer wraps its
+generation/microbatch work in a ``StepTracer.step(...)`` that
 
   * records wall time and item counts per step (always into the metrics
     registry's ``oryx_step_*`` series while metrics are enabled),
   * with ``oryx.tracing.enabled``, logs a rate-limited one-line summary
-    (mean/last duration, throughput).
-
-Not ported: the reference's ``oryx.tracing.profile-dir`` capture, which
-runs through its JAX-bound ``profiling`` module. A config that sets the key
-is refused at construction, so a profile that was asked for never goes
-missing in silence.
+    (mean/last duration, throughput),
+  * with ``oryx.tracing.enabled`` and ``oryx.tracing.profile-dir`` set,
+    captures a ``torch.profiler`` trace of the first ``profile-steps``
+    steps into that directory (a Chrome trace, ``*.pt.trace.json``)
+    through the process's shared :class:`profiling.ProfileSession`.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import time
 from contextlib import contextmanager
 
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common.lockutils import RateLimitCheck
 
 log = logging.getLogger(__name__)
@@ -45,11 +45,10 @@ _STEP_ITEMS = metrics_mod.default_registry().counter(
 
 class StepTracer:
     def __init__(self, config, tier: str):
-        if config.get_string("oryx.tracing.profile-dir", None) is not None:
-            raise NotImplementedError(
-                "oryx.tracing.profile-dir: step profiling is not ported yet")
         self.tier = tier
         self.enabled = config.get_bool("oryx.tracing.enabled", False)
+        self.profile_dir = config.get_string("oryx.tracing.profile-dir", None)
+        self.profile_steps = config.get_int("oryx.tracing.profile-steps", 5)
         self._log_check = RateLimitCheck(
             config.get_float("oryx.tracing.log-interval-sec", 60.0)
         )
@@ -57,6 +56,11 @@ class StepTracer:
         self.total_sec = 0.0
         self.total_items = 0
         self.last_sec = 0.0
+        self._profiling = False
+        # set when the shared ProfileSession refused a capture (another
+        # tracer or /debug/profile owns the profiler): retried only once
+        # the session frees up, so a refusal does not log on every step
+        self._profile_denied = False
 
     @contextmanager
     def step(self, name: str, n_items: int = 0):
@@ -71,6 +75,13 @@ class StepTracer:
         if not self.enabled and not record_metrics:
             yield
             return
+        profile = (
+            self.enabled
+            and self.profile_dir is not None
+            and self.steps < self.profile_steps
+        )
+        if profile:
+            self._start_profiler()
         t0 = time.perf_counter()
         try:
             yield
@@ -86,6 +97,8 @@ class StepTracer:
                 self.total_sec += dt
                 self.total_items += n_items
                 self.last_sec = dt
+                if profile and self.steps >= self.profile_steps:
+                    self._stop_profiler()
                 if self._log_check.test():
                     mean = self.total_sec / max(self.steps, 1)
                     rate = self.total_items / self.total_sec if self.total_sec > 0 else 0.0
@@ -93,6 +106,56 @@ class StepTracer:
                         "[%s] %s: step %d took %.3fs (mean %.3fs, %d items, %.1f items/s cum)",
                         self.tier, name, self.steps, dt, mean, n_items, rate,
                     )
+
+    @property
+    def _owner(self) -> str:
+        return f"steptracer-{self.tier}"
+
+    def _start_profiler(self) -> None:
+        """Begin this tracer's step capture through the SHARED
+        :class:`profiling.ProfileSession`: two tracers in one process
+        (batch + speed layers both enabled) are arbitrated by the session,
+        and the loser quietly skips its capture. Unbounded duration on
+        purpose: batch generations can run for hours, and the layer's close
+        path stops the capture."""
+        if self._profiling:
+            return
+        if self._profile_denied:
+            # denied earlier; retry only once the session frees up — a
+            # transient endpoint capture must not cost a long-running
+            # layer its configured step capture
+            if profiling.profile_session().busy():
+                return
+            self._profile_denied = False
+        try:
+            profiling.profile_session().start(
+                self.profile_dir, owner=self._owner, max_seconds=None
+            )
+            self._profiling = True
+            log.info("[%s] profiler trace started -> %s", self.tier, self.profile_dir)
+        except profiling.ProfileBusyError as e:
+            self._profile_denied = True
+            log.info("[%s] profiler busy; skipping step capture (%s)",
+                     self.tier, e)
+        except Exception:  # noqa: BLE001 - profiling must never kill a layer
+            log.exception("failed to start profiler trace")
+
+    def _stop_profiler(self) -> None:
+        """Stop OUR capture (owner-checked, so a tracer that never got the
+        session cannot cut a sibling's capture short). Reached both from
+        the step that completes the capture and from :meth:`close` — a
+        layer stopped before ``profile-steps`` steps still writes its
+        trace."""
+        if not self._profiling:
+            return
+        try:
+            if profiling.profile_session().stop(owner=self._owner) is not None:
+                log.info("[%s] profiler trace written -> %s",
+                         self.tier, self.profile_dir)
+        except Exception:  # noqa: BLE001
+            log.exception("failed to stop profiler trace")
+        finally:
+            self._profiling = False
 
     def metrics(self) -> dict:
         """Counters for health/introspection endpoints (fed from the same
@@ -105,4 +168,4 @@ class StepTracer:
         }
 
     def close(self) -> None:
-        """Nothing to release: the port's tracer holds no profiler."""
+        self._stop_profiler()

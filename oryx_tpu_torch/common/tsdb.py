@@ -2,10 +2,10 @@
 and trend-aware early warning (docs/observability.md "Time series & trends").
 
 A copy of the JAX package's ``oryx_tpu/common/tsdb.py`` (host code, no
-JAX), held equal to it by ``tests/test_torch_slo_tsdb.py``. The MFU, HBM and
-factor-arena signals read metric families the port does not register yet
-(profiling and the arena are not ported); the sampler skips a missing
-family, as it does in the reference.
+JAX), held equal to it by ``tests/test_torch_observability.py``. The MFU,
+HBM, factor-arena and RSS signals read the families that
+``common/profiling`` registers; the sampler skips a missing family, as it
+does in the reference.
 
 Every other observability surface — /metrics, SLO burn, blackbox bundles,
 fleet-status — is instantaneous: a scrape or a snapshot at one moment. This

@@ -12,9 +12,10 @@ Two changes from the JAX package:
 
   * ``__init__`` configures only the hooks the port has (metrics, spans,
     resilience, faults, blackbox, the SLO engine, the tsdb sampler, the
-    ``tcp:`` client defaults, the file broker's fsync policy). The
-    reference's compile cache, profiling, factor-arena and sanitizer hooks
-    are not ported (ROADMAP Queue 1, item 7).
+    ``tcp:`` client defaults, the file broker's fsync policy, profiling).
+    The reference's compile cache has no torch counterpart; its
+    factor-arena sizing knobs and sanitizer hooks are not ported (ROADMAP
+    Queue 1).
   * The context's device is resolved first in ``start()``, before any
     topic is checked, any thread spawned or any socket opened: a layer
     configured for the card on a host without one raises there, instead of
@@ -34,6 +35,7 @@ from oryx_tpu_torch.common import blackbox
 from oryx_tpu_torch.common import classutils
 from oryx_tpu_torch.common import faults
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common import resilience
 from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
@@ -88,6 +90,10 @@ class AbstractLayer:
         # tcp:// broker client knobs (oryx.broker.tcp.*), process-wide
         netbroker.configure(config)
         tp.configure(config)  # file-broker fsync durability policy
+        # trainer cost accounting + memory gauges report through the same
+        # /metrics surface as serving replicas — peaks and gauges
+        # configure here too (the device half wires once CUDA is up)
+        profiling.configure(config)
         self.tracer = StepTracer(config, tier)
         self.id = config.get_string("oryx.id", None)
         self.input_broker = config.get_string("oryx.input-topic.broker")

@@ -29,9 +29,15 @@ or the balance drifting past ``oryx.serving.index.rebalance-skew``, falls
 back to a full re-cluster.
 
 The reference compiles these programs with XLA from plain ``jnp`` (no
-Pallas kernel), so they are plain torch here. Its per-program cost keys
-and AOT compiles are not ported (torch compiles nothing per shape); the
-four ``oryx_index_*`` metrics are.
+Pallas kernel), so they are plain torch here, with the four
+``oryx_index_*`` metrics. A batched scan records one call of each program
+under the reference's cost keys (:func:`probe_cost_key`,
+:func:`scan_cost_key`) at an analytic cost, where the reference reads
+XLA's: the probe reads the centroids (``4·C·k`` bytes, ``2·B·C·k`` FLOPs);
+the cell scan reads the probed cells' int8 rows, scales and positions
+(``min(B·P, C)·L·(k + 8)`` bytes, the most distinct cells one call can
+read, plus the cells' buckets and the candidate table under LSH) and does
+``2·B·P·L·k`` FLOPs.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als.vectors import SnapshotIndex
 
@@ -90,6 +97,18 @@ def auto_cells(n: int) -> int:
 
 
 # -- device programs ---------------------------------------------------------
+
+
+def probe_cost_key(batch: int, cells: int, probes: int) -> str:
+    """Cost-accounting signature of the centroid-probe program."""
+    return f"als.ivf_probe/b{batch}/c{cells}/p{probes}"
+
+
+def scan_cost_key(batch: int, cells: int, probes: int,
+                  excl: bool, lsh: bool) -> str:
+    """Cost-accounting signature of the probed-cell candidate scan."""
+    return (f"als.ivf_scan/b{batch}/c{cells}/p{probes}"
+            + ("+excl" if excl else "") + ("+lsh" if lsh else ""))
 
 
 def _probe_cells(centroids: torch.Tensor, qs: torch.Tensor, probes: int):
@@ -227,8 +246,17 @@ class IVFSnapshot(SnapshotIndex):
         #: host seconds of a full build, by step (``build`` sets them)
         self.build_timings: dict = {}
         self._index_ids(prev if appended is not None else None)
+        # the cost keys registered at this snapshot's shape, carried by a
+        # successor with the same cell geometry
+        self.cost_keys_attempted = (
+            prev.cost_keys_attempted
+            if prev is not None and prev.n == self.n
+            and prev.cell_width == cell_width
+            and prev.n_cells == (0 if centroids_np is None else len(centroids_np))
+            else set())
         if cell_len is not None and len(ids):
             _INDEX_SKEW.set(self.skew())
+        profiling.register_quantized(self)
 
     @property
     def n_cells(self) -> int:
@@ -523,16 +551,41 @@ def _candidate_width(model, snap: IVFSnapshot, probes: int, want: int) -> int:
         max(int(model.rescore_factor * want), 16))))
 
 
+def _register_scan_costs(model, snap: IVFSnapshot, b: int, probes: int,
+                         pk: str, sk: str, lut) -> None:
+    """The probe's and the cell scan's analytic costs (module docstring),
+    on each key's first use at this snapshot's shape."""
+    from oryx_tpu_torch.models.als.serving import register_cost
+
+    c, width, k = snap.n_cells, snap.cell_width, model.features
+    register_cost(snap, pk, 2.0 * b * c * k, 4.0 * c * k)
+    cells_read = min(b * probes, c)
+    nbytes = float(cells_read) * width * (k + 8)
+    if lut is not None:
+        nbytes += 4.0 * cells_read * width + lut.numel()
+    register_cost(snap, sk, 2.0 * b * probes * width * k, nbytes)
+
+
 def _scan(model, snap: IVFSnapshot, qs_host: np.ndarray, probes: int,
-          r: int, excl, lut):
+          r: int, excl, lut, register: bool = False):
     """One probe + candidate scan: (vals, positions) of width ``r``,
-    quantized scores, on the host."""
+    quantized scores, on the host. ``register`` (the batched path) records
+    one call of the probe and one of the scan in the cost accounting."""
+    b = len(qs_host)
     qs = torch.as_tensor(qs_host, device=model.device)
+    if register:
+        pk = probe_cost_key(b, snap.n_cells, probes)
+        sk = scan_cost_key(b, snap.n_cells, probes, excl is not None,
+                           lut is not None)
+        _register_scan_costs(model, snap, b, probes, pk, sk, lut)
     cells = _probe_cells(snap.centroids, qs, probes)
     vals, idx = _ivf_candidates(snap.cell_pos, snap.cell_q, snap.cell_scale,
                                 qs, cells, excl, r, snap.cell_buckets, lut)
-    _INDEX_PROBED.inc(len(qs_host) * probes)
-    _INDEX_CANDIDATES.inc(len(qs_host) * r)
+    if register:
+        profiling.costs().record(pk)
+        profiling.costs().record(sk)
+    _INDEX_PROBED.inc(b * probes)
+    _INDEX_CANDIDATES.inc(b * r)
     return vals.cpu().numpy(), idx.cpu().numpy()
 
 
@@ -574,7 +627,7 @@ def top_n_batch(model, snap: IVFSnapshot, qs_host: np.ndarray, how_many: int,
     excl = model._excl_tensor(snap, excluded, len(qs_host))
     r = _candidate_width(model, snap, snap.probes, how_many)
     v, i = _scan(model, snap, qs_host, snap.probes, r, excl,
-                 _lut(model, snap, qs_host))
+                 _lut(model, snap, qs_host), register=True)
     vals, idx = model._rescore_exact(snap, qs_host, v, i)
 
     def single(q, how_many_, offset, allowed, rescore, excluded=None):

@@ -48,11 +48,31 @@ The fold-in API the serving resources call is here too: the YᵀY solver
 ``build_temporary_user_vector``, ``dot_with_items``, the mean-cosine
 ``top_n_cosine`` on the device, and the known-item counts.
 
-Not ported yet: sharded serving, the staged double-buffer swap
-(``precompile-batches`` with ``prewarm-swap``), and cost/metrics
-accounting (torch compiles nothing per shape, so ``warm_bucket`` runs each
-program once on a zero batch). The manager raises at construction on a
-setting that would need one of them.
+Generation handoffs double-buffer as the reference's do: with
+``oryx.serving.compute.precompile-batches`` and ``oryx.compile.prewarm-swap``
+on, a ``MODEL`` whose feature count differs builds the incoming generation
+as the manager's STAGED model while the old one keeps answering; ``UP``s
+fill the staged one, the serving layer's batch warmer runs its warm ladder
+(which builds its device snapshot) off the request path and then promotes
+it (``promote_staged``); a staged generation older than
+``oryx.compile.swap-deadline-sec`` is promoted unwarmed by
+:meth:`ALSServingModelManager.get_model`.
+
+Each batched top-N records one call into the device cost accounting
+(:mod:`oryx_tpu_torch.common.profiling`) under the reference's program
+keys (:func:`_topn_cost_key`, and ``ivf.probe_cost_key`` /
+``scan_cost_key``). The reference registers each key's cost from XLA's
+``cost_analysis()`` of the compiled program; torch compiles nothing, so
+here the cost is analytic, registered on the key's first use per snapshot
+shape: ``2·B·n·k`` FLOPs, and as bytes the scanned representation read
+once (``4nk`` float32, ``2nk`` bfloat16, ``nk + 4n`` int8 rows and
+scales), plus the LSH buckets (``4n``) and the (B, buckets) candidate
+table when LSH masks the scan. The int8 path's exact rescore runs on the
+host and is not device work. ``warm_bucket`` runs each program once on a
+zero batch.
+
+Not ported yet: sharded serving; the manager raises at construction when
+it is configured.
 """
 
 from __future__ import annotations
@@ -61,12 +81,16 @@ import json
 import logging
 import math
 import threading
+import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
+from oryx_tpu_torch.common import lineage
+from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.common.lockutils import RateLimitCheck
 from oryx_tpu_torch.ml.mlupdate import read_pmml_from_update_key_message
@@ -80,8 +104,51 @@ from oryx_tpu_torch.ops.solver import SolverCache
 log = logging.getLogger(__name__)
 
 
+_PREWARMED_SWAPS = metrics_mod.default_registry().counter(
+    "oryx_serving_prewarmed_swaps_total",
+    "Model-generation swaps promoted after off-path bucket warmup",
+)
+_DEADLINE_SWAPS = metrics_mod.default_registry().counter(
+    "oryx_serving_swap_deadline_promotions_total",
+    "Staged model generations promoted by the swap deadline, unwarmed",
+)
+
+
 def _round_up_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _topn_cost_key(batch_size: int, excl: bool, quant: bool = False) -> str:
+    """Cost-accounting program signature for one batched top-N variant (the
+    reference's keys): batch size, exclusion-carrying, quantized."""
+    return (f"als.top_n_batch/b{batch_size}"
+            + ("+excl" if excl else "") + ("+int8" if quant else ""))
+
+
+def _carry_cost_keys(snap, prev) -> None:
+    """A snapshot's set of cost keys registered at its shape: an incremental
+    successor with the same row count carries its predecessor's (the
+    analytic cost depends on the row count), any other starts empty."""
+    snap.cost_keys_attempted = (
+        prev.cost_keys_attempted
+        if prev is not None and prev.n == snap.n else set())
+
+
+def register_cost(snap, key: str, flops: float, bytes_: float) -> None:
+    """Register ``key``'s analytic per-call cost on its first use at this
+    snapshot's shape (the reference registers XLA's cost once per compiled
+    signature and generation)."""
+    if (key in snap.cost_keys_attempted
+            or not metrics_mod.default_registry().enabled):
+        return
+    snap.cost_keys_attempted.add(key)
+    profiling.costs().register(key, flops, bytes_)
+
+
+def _lsh_bytes(lsh, snap_n: int, batch: int) -> float:
+    """Bytes an LSH-masked scan reads beyond the rows: the rows' int32
+    buckets and the (B, buckets) boolean candidate table."""
+    return 4.0 * snap_n + batch * lsh.num_buckets
 
 
 #: Floor of the pow2-bucketed exclusion-mask width (the reference's value:
@@ -257,6 +324,7 @@ class _YSnapshot(SnapshotIndex):
         self.n = 0 if mat is None else mat.shape[0]
         incremental = prev is not None and delta is not None
         self._index_ids(prev if incremental else None)
+        _carry_cost_keys(self, prev if incremental else None)
         self.norms = self.score_mat = self.buckets = None
         if mat is None:
             return
@@ -325,6 +393,8 @@ class _QuantSnapshot(SnapshotIndex):
         self.mat = None
         self.score_mat = None
         self._index_ids(prev if appended is not None else None)
+        _carry_cost_keys(self, prev)
+        profiling.register_quantized(self)
 
     def quantized_nbytes(self) -> int:
         """Device bytes of the quantized factors: the int8 rows and their
@@ -769,6 +839,8 @@ class ALSServingModel(ServingModel):
                                            excluded, filtering)
         excl = self._excl_tensor(snap, excluded, n_q)
         qs = torch.as_tensor(qs_host, device=self.device)
+        cost_key = _topn_cost_key(n_q, excl is not None)
+        nbytes = float(snap.score_mat.element_size()) * snap.n * self.features
         if self.lsh is None or snap.buckets is None:
             k = min(snap.n, _round_up_pow2(
                 max(2 * how_many, 64) if filtering else max(how_many, 16)))
@@ -779,7 +851,11 @@ class ALSServingModel(ServingModel):
             k = min(snap.n, _round_up_pow2(max(2 * how_many, 64)))
             valid = self._build_lut(qs_host)[:, snap.buckets]
             scores = _masked_scores(snap.score_mat, qs, valid, excl)
+            nbytes += _lsh_bytes(self.lsh, snap.n, n_q)
+        register_cost(snap, cost_key, 2.0 * n_q * snap.n * self.features,
+                      nbytes)
         vals, idx = torch.topk(scores, k, dim=1)
+        profiling.costs().record(cost_key)
         return self._batch_results(snap, qs_host, vals.cpu().numpy(),
                                    idx.cpu().numpy(), k, how_many, alloweds,
                                    excluded, filtering, self.top_n)
@@ -812,12 +888,20 @@ class ALSServingModel(ServingModel):
         """Batched top-N on the int8 path: ONE quantized scan of the whole
         batch returning ``rescore-factor × how_many`` candidates each,
         rescored exactly from the slab before the final cut."""
-        excl = self._excl_tensor(snap, excluded, len(qs_host))
+        n_q = len(qs_host)
+        excl = self._excl_tensor(snap, excluded, n_q)
         r = min(snap.n,
                 _round_up_pow2(max(int(self.rescore_factor * how_many), 16)))
         lut = (self._build_lut(qs_host)
                if self.lsh is not None and snap.buckets is not None else None)
+        cost_key = _topn_cost_key(n_q, excl is not None, quant=True)
+        nbytes = float(snap.n) * self.features + 4.0 * snap.n
+        if lut is not None:
+            nbytes += _lsh_bytes(self.lsh, snap.n, n_q)
+        register_cost(snap, cost_key, 2.0 * n_q * snap.n * self.features,
+                      nbytes)
         vals, idx = self._quant_scan(snap, qs_host, r, excl, lut=lut)
+        profiling.costs().record(cost_key)
 
         def single(q, how_many_, offset, allowed, rescore, excluded=None):
             return self._quant_top_n(snap, q, how_many_, offset, allowed,
@@ -978,24 +1062,75 @@ class ALSServingModelManager(AbstractServingModelManager):
         if config.get_bool("oryx.serving.compute.sharded", False):
             raise NotImplementedError(
                 "oryx.serving.compute.sharded: sharded serving is not ported yet")
-        if (config.get_bool("oryx.serving.compute.precompile-batches", False)
-                and config.get_bool("oryx.compile.prewarm-swap", True)):
-            raise NotImplementedError(
-                "oryx.serving.compute.precompile-batches with "
-                "oryx.compile.prewarm-swap: the staged model swap is not "
-                "ported yet")
         self.rescorer_provider = load_rescorer_providers(config)
         self.device = resolve(device)
         # the YᵀY pre-trigger's rate limit (ALSServingModelManager.java:95-105)
         self._solver_trigger_rate = RateLimitCheck(5)
         self.model: "ALSServingModel | None" = None
+        # double-buffered generation handoff: with the batch warmer running,
+        # a MODEL push with new shapes builds the incoming generation here
+        # while the warm old generation keeps answering; the warmer warms
+        # the staged model off the request path and then promotes it
+        self._staged: "ALSServingModel | None" = None
+        self._staged_at = 0.0
+        self._swap_lock = threading.Lock()
+        self._prewarm_swap = (
+            config.get_bool("oryx.serving.compute.precompile-batches", False)
+            and config.get_bool("oryx.compile.prewarm-swap", True)
+        )
+        self._swap_deadline = config.get_float(
+            "oryx.compile.swap-deadline-sec", 120.0)
 
     def get_model(self) -> "ALSServingModel | None":
-        return self.model
+        # deadline valve on the request path: one None-check when no swap
+        # is staged; a staged generation whose warmer died (or whose warm
+        # keeps failing) must still land eventually. Lock-free reads: single
+        # reference loads are atomic under the GIL, and the flip happens
+        # under _swap_lock and re-checks there
+        staged = self._staged  # analyze: ignore[lock-discipline] -- atomic reference load on the hot path; flip is under _swap_lock
+        if staged is not None and self._swap_deadline > 0 and (
+            time.monotonic() - self._staged_at > self._swap_deadline  # analyze: ignore[lock-discipline] -- _staged_at is written before _staged publishes
+        ):
+            if self._promote_staged(expected=staged, deadline=True):
+                log.warning(
+                    "promoting staged model generation unwarmed: swap "
+                    "deadline (%gs) passed", self._swap_deadline)
+        return self.model  # analyze: ignore[lock-discipline] -- atomic reference load on the hot path; flip is under _swap_lock
+
+    def get_staged_model(self) -> "ALSServingModel | None":
+        with self._swap_lock:
+            return self._staged
+
+    def promote_staged(self, expected=None) -> bool:
+        """Atomically flip the warmed staged generation into service
+        (called by the batch warmer after its ladder completes).
+        ``expected`` guards against promoting a model the caller did not
+        warm: if a later MODEL push replaced the staged generation while the
+        ladder ran, the flip is refused and the warmer runs again."""
+        return self._promote_staged(expected=expected, deadline=False)
+
+    def _promote_staged(self, expected, deadline: bool) -> bool:
+        with self._swap_lock:
+            staged = self._staged
+            if staged is None or (expected is not None and staged is not expected):
+                return False
+            self.model = staged
+            self._staged = None
+        (_DEADLINE_SWAPS if deadline else _PREWARMED_SWAPS).inc()
+        # adoption timeline: the staged generation just went into service
+        # (idempotent: the warmer and the deadline valve can both report it)
+        lineage.tracker().mark_live()
+        return True
+
+    def _current_generation(self) -> "ALSServingModel | None":
+        """The generation the update topic is describing NOW: the staged
+        model once a MODEL handoff is in flight, else the serving one."""
+        with self._swap_lock:
+            return self._staged or self.model
 
     def consume_key_message(self, key: str, message: str) -> None:
         if key == "UP":
-            model = self.model
+            model = self._current_generation()
             if model is None:
                 return
             update = json.loads(message)
@@ -1013,7 +1148,7 @@ class ALSServingModelManager(AbstractServingModelManager):
             pmml = read_pmml_from_update_key_message(key, message)
             meta = pmml_codec.pmml_to_meta(pmml)
             features = meta["features"]
-            current = self.model
+            current = self._current_generation()
             if current is None or current.features != features:
                 new_model = ALSServingModel(
                     features, meta["implicit"], self.sample_rate,
@@ -1030,8 +1165,20 @@ class ALSServingModelManager(AbstractServingModelManager):
                 new_model.y.reserve(len(meta["y_ids"]))
                 new_model.expected_user_ids = set(meta["x_ids"])
                 new_model.expected_item_ids = set(meta["y_ids"])
-                self.model = new_model
-                log.info("new serving model generation (features=%d)", features)
+                with self._swap_lock:
+                    staging = self.model is not None and self._prewarm_swap
+                    if staging:
+                        # keep serving the old generation; the warmer fills
+                        # and warms this one off-path, then promotes it. The
+                        # timestamp goes BEFORE the reference: the deadline
+                        # valve reads both lock-free
+                        self._staged_at = time.monotonic()
+                        self._staged = new_model
+                    else:
+                        self.model = new_model
+                        self._staged = None
+                log.info("%s serving model generation (features=%d)",
+                         "staging" if staging else "new", features)
             else:
                 m = current
                 m.retain_recent_and_user_ids(meta["x_ids"])
@@ -1048,8 +1195,10 @@ class ALSServingModelManager(AbstractServingModelManager):
         passes the load fraction, so the first fold-in request does not
         wait for it (ALSServingModelManager.java:95-105). Rate-limited: the
         fraction test walks the expected-id sets, too costly per ``UP``;
-        the launch is a no-op while the cache is clean."""
-        model = self.model
+        the launch is a no-op while the cache is clean. During a staged
+        swap the UPs fill the staged model: its solver is the one to warm,
+        or the first fold-in after the flip would wait for it."""
+        model = self._current_generation()
         if model is None or not self._solver_trigger_rate.test():
             return
         if model.get_fraction_loaded() >= self.min_model_load_fraction:

@@ -24,7 +24,10 @@ generation's packed sides (``reused``) or repacks only the blocks that
 appended entries touched (``delta``), bit-identical to a full pack; and
 ``als_train(checkpointer=...)`` saves the factors every interval and
 resumes from the newest valid checkpoint (:mod:`oryx_tpu_torch.common.
-checkpoint`). Both are the reference's.
+checkpoint`). Both are the reference's. Each half-iteration that runs
+records one call of ``als.train.user_half`` / ``als.train.item_half`` into
+the device cost accounting (:mod:`oryx_tpu_torch.common.profiling`), at the
+analytic cost of :func:`half_cost`, as the reference does.
 
 Float32 products on the card run in full float32, never TF32
 (:func:`oryx_tpu_torch.common.device.resolve`). Mesh training is not
@@ -43,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.models.als.data import RatingBatch
@@ -776,6 +780,31 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def half_cost(side: _BlockedSide, nnz: int, features: int,
+              dtype: str) -> "tuple[float, float]":
+    """Analytic (flops, bytes) of one half-iteration over ``side``: the
+    reference's model (``_register_half_cost``) on the port's blocked
+    layout — 2·nnz·k² Gramian + 2·nnz·k right-hand side +
+    rows·(k³/3 + 2k²) solve FLOPs, and as bytes the slot-cell gather at the
+    compute dtype plus the per-row Gramian and factor writes."""
+    k = features
+    rows = side.padded_rows
+    flops = (2.0 * nnz * k * k + 2.0 * nnz * k
+             + rows * (k ** 3 / 3.0 + 2.0 * k * k))
+    gather_itemsize = 2.0 if dtype == "bfloat16" else 4.0
+    bytes_ = (float(side.scols.numel()) * k * gather_itemsize
+              + rows * k * (k + 1) * 4.0)
+    return flops, bytes_
+
+
+def _register_half_cost(key: str, side: _BlockedSide, nnz: int,
+                        features: int, dtype: str) -> None:
+    """The trainer's cost accounting (``common/profiling``): one program
+    signature per half, registered from :func:`half_cost` once its side is
+    packed; each half that runs records one call."""
+    profiling.costs().register(key, *half_cost(side, nnz, features, dtype))
+
+
 def als_train(
     batch: RatingBatch,
     features: int,
@@ -869,6 +898,7 @@ def als_train(
         t1 = time.perf_counter()
         side = item_fut.result()
         wait_s = time.perf_counter() - t1
+        _register_half_cost("als.train.item_half", side, batch.nnz, k, dtype)
         if layout_cache is not None:
             layout_cache.store_batch(batch.rows, batch.cols, batch.vals)
         if timings is not None:
@@ -910,6 +940,8 @@ def als_train(
         t0 = time.perf_counter()
         user_side = pack_user()
         pack_user_s = time.perf_counter() - t0
+        _register_half_cost("als.train.user_half", user_side, batch.nnz, k,
+                            dtype)
 
         # resume: the newest valid checkpoint matching the data fingerprint
         # replaces Y₀ (and skips its completed iterations); shape drift —
@@ -961,6 +993,11 @@ def als_train(
             y = init_item_factors(padded_i, n_items, k, generator, dev)
 
         def solve(side, opp):
+            # one cost-accounted call per half that runs: a resumed train
+            # records only the halves it runs
+            profiling.costs().record(
+                "als.train.user_half" if side is user_side
+                else "als.train.item_half")
             return solve_side_blocked(
                 opp, side.srows, side.scols, side.svals, side.slens, lam,
                 alpha, block=side.block, features=k, implicit=implicit,

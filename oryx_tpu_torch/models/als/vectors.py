@@ -40,6 +40,11 @@ rescore gathers that stay valid whatever the live store does afterwards (a
 removal or a retain re-packs into a fresh slab; a growth copies into a
 fresh slab too, rows in place); :meth:`delta_info` composes the write log
 since a consumer's version into one :class:`HostDelta`.
+
+Each store reports its slab's bytes and fill (live rows over capacity) to
+the ``oryx_factor_arena_*`` gauges (:mod:`oryx_tpu_torch.common.profiling`).
+The reference's arena sizing and compaction knobs (``oryx.serving.arena.*``)
+are not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import weakref
 import numpy as np
 import torch
 
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.common.lockutils import AutoReadWriteLock
 
@@ -155,6 +161,8 @@ class FeatureVectorStore:
         self._transitions: collections.deque = collections.deque(maxlen=8)
         #: materialisations so far, by kind ("full", "incremental")
         self.materializations = {"full": 0, "incremental": 0}
+        # the arena-bytes/fill gauges read live stores at scrape time
+        profiling.register_arena(self)
 
     # -- slab plumbing (callers hold the write lock) -------------------------
     def _ensure(self, k: int, need: int) -> None:
@@ -286,6 +294,19 @@ class FeatureVectorStore:
     def ids(self) -> list:
         with self._lock.read():
             return list(self._ids)
+
+    # -- arena telemetry (scrape-time gauges; see common/profiling.py) ------
+    def arena_nbytes(self) -> int:
+        """Host bytes of the slab (its capacity, filled or not)."""
+        slab = self._slab  # analyze: ignore[lock-discipline] -- scrape-time advisory read; a torn sample skews one gauge scrape, never store state
+        return int(slab.nbytes) if slab is not None else 0
+
+    def arena_fill(self) -> float:
+        """Live rows over the slab's capacity."""
+        slab = self._slab  # analyze: ignore[lock-discipline] -- scrape-time advisory read (see arena_nbytes)
+        if slab is None or slab.shape[0] == 0:
+            return 0.0
+        return len(self._ids) / slab.shape[0]  # analyze: ignore[lock-discipline] -- scrape-time advisory read (see arena_nbytes)
 
     def host_matrix(self) -> "tuple[list, np.ndarray, int, tuple]":
         """(ids, row-aligned float32 copy, version, (slab, rows)): the full

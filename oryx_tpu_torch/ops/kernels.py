@@ -17,9 +17,10 @@ tensor goes to the kernel, or the wrapper raises. Nothing falls back from a
 failed kernel to the plain version. Each kernel launch adds one to its
 entry in :data:`LAUNCHES` and in :data:`SHAPE_LAUNCHES`, so a run can show
 that it went through the kernels, and at which shapes, and to the
-reference's ``oryx_device_calls_total{program}`` counter in the process's
-metrics registry, which another process reads (a blackbox bundle's metrics
-snapshot, ``/metrics``); the plain versions count nothing.
+``oryx_device_calls_total{program}`` counter of
+:mod:`oryx_tpu_torch.common.profiling`, which another process reads (a
+blackbox bundle's metrics snapshot, ``/metrics``); the plain versions count
+nothing.
 
 Kernels launch on PyTorch's current stream and allocate nothing: the
 wrappers allocate the outputs. They are built on first use
@@ -36,7 +37,7 @@ import threading
 
 import torch
 
-from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.ops import _build
 
 log = logging.getLogger(__name__)
@@ -56,16 +57,6 @@ SHAPE_LAUNCHES: dict = {}
 # candidate builds launch from several host threads: every count is a
 # read-modify-write, so each takes this lock
 _launch_lock = threading.Lock()
-#: The reference's counter (``oryx_tpu/common/profiling.py``), same name,
-#: help and label; ``program`` is the kernel label of
-#: :data:`SHAPE_LAUNCHES`. It moves to ``common/profiling`` when that is
-#: ported (ROADMAP Queue 1, item 7).
-DEVICE_CALLS = metrics_mod.default_registry().counter(
-    "oryx_device_calls_total",
-    "Device-program executions recorded by the cost-accounting layer "
-    "(counted even for signatures whose cost is not registered yet)",
-    ("program",),
-)
 
 
 def reset_launches() -> None:
@@ -89,7 +80,9 @@ def _count_shape(kernel: str, shape: tuple) -> None:
 def _add_shape(kernel: str, shape: tuple) -> None:
     key = (kernel, shape)
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
-    DEVICE_CALLS.labels(kernel).inc()
+    # oryx_device_calls_total, under the kernel's own program label beside
+    # the cost registry's (als.train.user_half, als.top_n_batch/b256, ...)
+    profiling.DEVICE_CALLS.labels(kernel).inc()
 
 
 # The reference's gate (pallas_kernels._GG_MAX_FEATURES), kept as it is: the

@@ -6,9 +6,10 @@ JAX) on the same aiohttp, held to it over HTTP by
 
   * :func:`make_app` configures only the hooks the port has (metrics,
     spans, resilience, faults, blackbox, the SLO engine, the tsdb sampler,
-    lineage, the ``tcp:`` client defaults, the file broker's fsync policy).
-    The reference's compile cache, profiling, sanitizer and factor-arena
-    hooks are not ported (ROADMAP Queue 1, item 7).
+    lineage, the ``tcp:`` client defaults, the file broker's fsync policy,
+    profiling). The reference's compile cache has no torch counterpart;
+    its sanitizer and factor-arena sizing hooks are not ported (ROADMAP
+    Queue 1).
   * ``ServingLayer(config, device=None)`` serves a model on ``device``:
     None means the CUDA card. ``start()`` resolves it before it creates a
     topic, a thread, a producer or a socket, so on a host without a card it
@@ -57,6 +58,7 @@ from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common import resilience
 from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
@@ -411,9 +413,11 @@ def make_app(config, manager, input_producer=None) -> web.Application:
     # tcp client knobs (oryx.broker.tcp.*) for any get_broker below
     netbroker.configure(config)
     tp.configure(config)  # file-broker fsync durability policy
-    # not ported: als_vectors.configure (the factor arena),
-    # profiling.configure and sanitize.configure (tooling, ROADMAP Queue 1,
-    # item 7)
+    # not ported: als_vectors.configure (the factor arena's sizing knobs)
+    # and sanitize.configure (tooling, ROADMAP Queue 1)
+    # roofline peaks + device-memory gauges + the profiler session config
+    # (after the others; the device half wires once CUDA is initialised)
+    profiling.configure(config)
     middlewares = [_metrics_middleware, rsrc.error_middleware, _compression_middleware]
     dl_mw = _deadline_middleware(config)
     if dl_mw is not None:
@@ -483,12 +487,13 @@ def _exempt_canonicals(config) -> frozenset:
 
     ``/healthz``/``/readyz`` are ALWAYS exempt (load balancers cannot speak
     digest, and the probes leak nothing beyond up/down); ``/metrics``,
-    ``/metrics/history``, ``/trace``, ``/lineage`` and ``/debug/bundle``
-    share one auth story — exempt unless ``oryx.metrics.require-auth``."""
+    ``/metrics/history``, ``/trace``, ``/lineage``, ``/debug/profile`` and
+    ``/debug/bundle`` share one auth story — exempt unless
+    ``oryx.metrics.require-auth``."""
     templates = {"/healthz", "/readyz"}
     if not config.get_bool("oryx.metrics.require-auth", False):
         templates |= {"/metrics", "/metrics/history", "/trace", "/lineage",
-                      "/debug/bundle"}
+                      "/debug/profile", "/debug/bundle"}
     context_path = config.get_string("oryx.serving.api.context-path", "/") or "/"
     prefix = context_path.rstrip("/")
     return frozenset(templates | {prefix + t for t in templates})
@@ -658,10 +663,13 @@ class _BatchWarmer(threading.Thread):
     (readyz gating + the oryx_warmup_* metrics) and each ladder is traced
     as a ``serving.warmup`` span with per-bucket children.
 
-    The reference double-buffers generation handoffs through the manager's
-    STAGED model; the port's ALS manager has no staged model yet (it
-    refuses ``precompile-batches`` with ``oryx.compile.prewarm-swap``), so
-    here the warmer warms the serving generation in place. Models without a
+    Generation handoffs double-buffer through the manager's STAGED model
+    (``oryx.compile.prewarm-swap``, the default): the warmer warms a staged
+    generation first, off the request path, then promotes it with
+    ``promote_staged(expected=...)``. A warm ladder runs every signature
+    once, so the incoming generation's device state (its float32 or
+    bfloat16 matrix, int8 snapshot or IVF index) is built here, never by
+    the first query after the flip. Models without a
     batched top-N (k-means) mark warmup trivially complete. Each bucket
     warms BOTH signature families — exclusion-free and exclusion-carrying
     (the default ``/recommend`` path always sends known-item exclusions,
@@ -848,8 +856,9 @@ class ServingLayer:
         # the device first: without the card this raises before any topic,
         # thread, producer or socket exists
         self.device = resolve(self._device_arg)
-        # the build-info sample names the device the model serves from (the
-        # reference's profiling.configure sets it; profiling is not ported)
+        # the build-info sample names the device the model serves from
+        # (profiling sets it again once CUDA is initialised; a CPU layer
+        # has only this one)
         metrics_mod.set_build_info(
             self.device.type, torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu")

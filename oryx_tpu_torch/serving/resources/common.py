@@ -1,9 +1,8 @@
 """Framework-level endpoints: /ready, /error, /metrics, /trace and probes.
 
 A copy of the JAX package's ``oryx_tpu/serving/resources/common.py`` (host
-code, no JAX) without ``POST /debug/profile``: the on-demand profiler needs
-``common/profiling``, which the port does not have yet (ROADMAP Queue 1,
-item 7), so that route answers 404.
+code, no JAX). ``POST /debug/profile`` captures a ``torch.profiler`` trace
+(a Chrome trace file) where the reference captures a ``jax.profiler`` one.
 
 Equivalent of the reference's Ready (app/oryx-app-serving/.../Ready.java:33)
 and ErrorResource (framework/oryx-lambda-serving/.../ErrorResource.java:35);
@@ -29,6 +28,7 @@ from oryx_tpu_torch.common import blackbox
 from oryx_tpu_torch.common import compilecache
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common import slo as slo_mod
 from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common import tsdb
@@ -212,6 +212,54 @@ async def lineage_view(request: web.Request) -> web.Response:
     return web.json_response(snapshot)
 
 
+async def debug_profile(request: web.Request) -> web.Response:
+    """On-demand device profiling of the live process:
+    ``POST /debug/profile?seconds=N`` captures a ``torch.profiler`` trace
+    for N seconds (refused past ``oryx.profiling.max-capture-sec``) and
+    answers with the trace directory, which holds one Chrome trace
+    (``*.pt.trace.json``: Perfetto or ``chrome://tracing`` read it).
+    Exactly ONE capture may be in flight per process: a concurrent request,
+    or one arriving while another torch profiler runs in the process,
+    answers 409 naming the current owner. The capture runs in a worker
+    thread (``asyncio.to_thread``) so the event loop keeps serving —
+    profiling a replica must not stall its traffic. Auth story = /metrics
+    (exempt unless ``oryx.metrics.require-auth``)."""
+    config = request.app[rsrc.CONFIG_KEY]
+    try:
+        seconds = float(request.query.get("seconds", "3"))
+    except ValueError as e:
+        raise OryxServingException(400, "bad seconds") from e
+    max_seconds = config.get_float("oryx.profiling.max-capture-sec", 60.0)
+    rsrc.check(seconds > 0, "seconds must be positive")
+    rsrc.check(seconds <= max_seconds,
+               f"seconds capped at {max_seconds:g} "
+               "(oryx.profiling.max-capture-sec)")
+    session = profiling.profile_session()
+    if session.busy():
+        # fast-path refusal; the start() inside capture() still guards the
+        # race where two requests pass this check together
+        raise OryxServingException(
+            409, f"profiler capture already in flight "
+                 f"(owner={session.owner()!r})"
+        )
+    try:
+        # dir creation + capture are ONE worker-thread hop: both block, and
+        # neither may stall the loop of the replica being profiled
+        trace_dir = await asyncio.to_thread(
+            profiling.timed_capture,
+            config.get_string("oryx.profiling.profile-dir", None),
+            seconds, "debug-endpoint",
+        )
+    except profiling.ProfileBusyError as e:
+        raise OryxServingException(409, str(e)) from e
+    return web.json_response({
+        "trace_dir": trace_dir,
+        "seconds": seconds,
+        "hint": f"open {trace_dir}/*.pt.trace.json in Perfetto or "
+                "chrome://tracing",
+    })
+
+
 async def debug_bundle(request: web.Request) -> web.Response:
     """The black-box flight recorder's one-call postmortem artifact
     (common/blackbox.py): event ring + metrics snapshot + slowest traces
@@ -240,4 +288,5 @@ def register(app: web.Application) -> None:
     app.router.add_route("GET", "/metrics/history", metrics_history)
     app.router.add_route("GET", "/trace", trace)
     app.router.add_route("GET", "/lineage", lineage_view)
+    app.router.add_route("POST", "/debug/profile", debug_profile)
     app.router.add_route("GET", "/debug/bundle", debug_bundle)

@@ -1,10 +1,13 @@
 """Prometheus text-exposition readers for the fleet console.
 
-The two functions of the JAX package's ``oryx_tpu/tools/trace_summary.py``
+The functions of the JAX package's ``oryx_tpu/tools/trace_summary.py``
 that :mod:`oryx_tpu_torch.common.federation` needs, copied (host code, no
 JAX, no torch) and held equal to them by ``tests/test_torch_federation.py``:
-:func:`parse_metrics_text` and :func:`bucket_quantile`. The rest of that
-tool (profiler traces, perf history) is not ported.
+:func:`parse_metrics_text` and :func:`bucket_quantile`; and
+:func:`device_perf_rows`, the device-performance view of a metrics dump
+(``common/profiling``'s series), held to the reference's test by
+``tests/test_torch_profiling.py``. The rest of that tool (profiler traces,
+perf history) is not ported.
 """
 
 from __future__ import annotations
@@ -105,3 +108,37 @@ def bucket_quantile(bucket_rows: list, count: float, q: float) -> float:
         first = False
     return bucket_rows[-1][0] if bucket_rows else float("nan")
 
+
+#: Metric-name prefixes of the device-performance view.
+_DEVICE_PERF_PREFIXES = ("oryx_device_", "oryx_host_")
+
+#: Renderings for the headline device-perf gauges (value -> display).
+_DEVICE_PERF_FMT = {
+    "oryx_device_mfu": lambda v: f"{100.0 * v:.3f}% MFU",
+    "oryx_device_hbm_bandwidth_fraction":
+        lambda v: f"{100.0 * v:.2f}% of HBM peak",
+    "oryx_device_flops_per_second": lambda v: f"{v / 1e12:.4f} TFLOP/s",
+    "oryx_device_bytes_per_second": lambda v: f"{v / 1e9:.3f} GB/s",
+}
+
+
+def device_perf_rows(scalars: list) -> list:
+    """(series, value, pretty) rows for the device-performance section of a
+    metrics dump: cost-accounting counters/rates, MFU/bandwidth fractions,
+    and device/host memory gauges."""
+    rows = []
+    for name, key, value in scalars:
+        if not name.startswith(_DEVICE_PERF_PREFIXES):
+            continue
+        label = ",".join(f"{k}={v}" for k, v in key)
+        series = f"{name}{{{label}}}" if label else name
+        fmt = _DEVICE_PERF_FMT.get(name)
+        if fmt is not None:
+            pretty = fmt(value)
+        elif name.endswith("_bytes") or "memory" in name:
+            pretty = f"{value / (1024.0 ** 2):.1f} MiB"
+        else:
+            pretty = f"{value:,.0f}"
+        rows.append((series, value, pretty))
+    rows.sort(key=lambda r: r[0])
+    return rows

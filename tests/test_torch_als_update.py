@@ -386,16 +386,11 @@ def _write_model(tmp_path, users, items):
 
 @pytest.mark.parametrize("overlay", [
     # sharded serving (and with it the reference's int8 + mesh fallback)
-    # and the staged swap are not ported, whatever the representation
+    # is not ported, whatever the representation
     {"oryx.serving.compute.sharded": True},
     {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8"},
     {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8",
      "oryx.serving.index.enabled": True},
-    {"oryx.serving.compute.precompile-batches": True},
-    {"oryx.serving.compute.precompile-batches": True,
-     "oryx.compile.prewarm-swap": True},
-    {"oryx.serving.compute.precompile-batches": True,
-     "oryx.serving.device-dtype": "int8"},
 ])
 def test_unsupported_serving_settings_raise_at_construction(overlay):
     with pytest.raises(NotImplementedError):
@@ -414,7 +409,13 @@ def test_supported_serving_settings_construct():
                     {"oryx.serving.device-dtype": "int8",
                      "oryx.serving.index.enabled": True},
                     {"oryx.serving.compute.precompile-batches": True,
-                     "oryx.compile.prewarm-swap": False}):
+                     "oryx.compile.prewarm-swap": False},
+                    # the staged swap (prewarm-swap defaults to true)
+                    {"oryx.serving.compute.precompile-batches": True},
+                    {"oryx.serving.compute.precompile-batches": True,
+                     "oryx.compile.prewarm-swap": True},
+                    {"oryx.serving.compute.precompile-batches": True,
+                     "oryx.serving.device-dtype": "int8"}):
         mgr = ALSServingModelManager(cfg.overlay_on(overlay, cfg.get_default()),
                                      device="cpu")
-        assert mgr.get_model() is None
+        assert mgr.get_model() is None and mgr.get_staged_model() is None

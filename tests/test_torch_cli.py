@@ -189,8 +189,13 @@ def test_cli_als_loop_as_processes(tmp_path):
     mb = out["microbatch"]
     assert mb["lines"] == 400 - mb["probe_lines"] and mb["ups"] > mb["lines"]
     assert mb["touched_checked"] > 0 and mb["ticks"] >= 1
-    # the plain versions run on the CPU: no kernel launched in the batch process
-    assert out["launches"]["by_program"] == {}
+    # the plain versions run on the CPU: no kernel launched in the batch
+    # process; the family holds only the trainer's cost accounting, one
+    # call a half per iteration (2) of each generation it ran
+    calls = out["launches"]["by_program"]
+    assert set(calls) == {'program="als.train.user_half"',
+                          'program="als.train.item_half"'}
+    assert len(set(calls.values())) == 1 and next(iter(calls.values())) % 2 == 0
     assert set(out["exits"]) == {"batch", "speed", "serving-0", "broker"}
     assert out["failures"] == {}
     # the microbatch's last line is among the known items of the model the

@@ -1129,3 +1129,118 @@ def test_resume_on_the_card_is_bit_equal(cuda_device, tmp_path):
     x3, y3, resumed, launches = train()
     assert resumed == 4 and not any(launches.values())
     assert torch.equal(x3, x2) and torch.equal(y3, y2)
+
+
+@pytest.mark.cuda
+def test_memory_gauges_equal_torch_cuda_memory_stats(cuda_device):
+    """``common/profiling``'s card gauges read the caching allocator as
+    ``torch.cuda`` does, after a synchronise: allocated bytes now and at
+    peak, and the card's total memory."""
+    from oryx_tpu_torch.common import config as cfg
+    from oryx_tpu_torch.common import metrics
+    from oryx_tpu_torch.common import profiling
+
+    keep = torch.ones((1024, 1024), device=cuda_device)
+    profiling.configure(cfg.get_default())
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(0)
+    snap = metrics.default_registry().snapshot()
+    label = 'device="cuda:0"'
+    assert snap["oryx_device_memory_bytes_in_use"][label] == stats[
+        "allocated_bytes.all.current"]
+    assert snap["oryx_device_memory_peak_bytes"][label] == stats[
+        "allocated_bytes.all.peak"]
+    assert snap["oryx_device_memory_limit_bytes"][label] == torch.cuda.mem_get_info(0)[1]
+    assert profiling.memory_snapshot()["devices"]["cuda:0"]["bytes_in_use"] == (
+        torch.cuda.memory_allocated(0))
+    if torch.cuda.get_device_name(0).startswith("NVIDIA H100"):
+        assert profiling.peak_flops_per_s() == 67e12
+    del keep
+
+
+@pytest.mark.cuda
+def test_profile_session_captures_the_gather_gramian_kernel(cuda_device, tmp_path):
+    """A ``ProfileSession`` capture in a fresh process (one profiler session
+    per process: see ``profiler_gap.py``) records the gather-Gramian's
+    kernel in its Chrome trace."""
+    import os
+    import subprocess
+    import sys
+
+    code = f"""
+import glob, json, sys
+import numpy as np, torch
+sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+from test_torch_cuda import _gg_inputs
+from oryx_tpu_torch.common import profiling
+from oryx_tpu_torch.ops import kernels as K
+y, srow, scols, w, coef, slens = (torch.as_tensor(a, device="cuda")
+                                   for a in _gg_inputs(3, 16, 8, 32, 60, 4))
+K.gather_gramian_accumulate(y, srow, scols, w, coef, slens, block=32)
+torch.cuda.synchronize()
+d = profiling.profile_session().start({str(tmp_path)!r}, owner="t", max_seconds=60)
+K.gather_gramian_accumulate(y, srow, scols, w, coef, slens, block=32)
+torch.cuda.synchronize()
+assert profiling.profile_session().stop(owner="t") == d
+(path,) = glob.glob(d + "/*.pt.trace.json")
+events = json.load(open(path))["traceEvents"]
+names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+print(json.dumps(names))
+assert any("gather_gramian_kernel" in n for n in names), names
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+
+
+@pytest.mark.cuda
+def test_staged_swap_on_the_card_promotes_and_answers_as_a_fresh_model(
+        cuda_device, tmp_path):
+    """Generation 1 (k = 8) live on the card, generation 2 (k = 12) staged
+    behind it and filled by its ``UP``s, promoted: its answers equal a
+    fresh manager's that loaded generation 2 alone."""
+    from oryx_tpu_torch.common import config as cfg
+    from oryx_tpu_torch.models.als import pmml_codec
+    from oryx_tpu_torch.models.als.serving import ALSServingModelManager
+    from oryx_tpu_torch.pmml import pmmlutils
+
+    rng = np.random.default_rng(SEED + 1)
+    items = [f"i{j}" for j in range(500)]
+    users = [f"u{j}" for j in range(300)]
+
+    def stream(k, name):
+        d = tmp_path / name
+        d.mkdir()
+        x = rng.standard_normal((len(users), k)).astype(np.float32)
+        y = rng.standard_normal((len(items), k)).astype(np.float32)
+        pmml = pmml_codec.model_to_pmml(x, y, users, items, k, 0.1, 1.0, True,
+                                        False, 1e-5, d)
+        out = [("MODEL", pmmlutils.to_string(pmml))]
+        out += [("UP", json.dumps(["Y", i, [float(v) for v in vec]]))
+                for i, vec in pmml_codec.read_features(d / "Y")]
+        out += [("UP", json.dumps(["X", u, [float(v) for v in vec]]))
+                for u, vec in pmml_codec.read_features(d / "X")]
+        return out
+
+    gen1, gen2 = stream(8, "g1"), stream(12, "g2")
+    conf = cfg.overlay_on({"oryx.serving.compute.precompile-batches": True},
+                          cfg.get_default())
+    swapped = ALSServingModelManager(conf)
+    fresh = ALSServingModelManager(conf)
+    for key, message in gen1 + gen2:
+        swapped.consume_key_message(key, message)
+    for key, message in gen2:
+        fresh.consume_key_message(key, message)
+    staged = swapped.get_staged_model()
+    assert swapped.get_model().features == 8 and staged.features == 12
+    staged.warm_bucket(16)  # the warmer's ladder, one bucket
+    assert staged.y_snapshot().mat.device.type == "cuda"
+    assert swapped.promote_staged(expected=staged)
+    assert swapped.get_model() is staged and swapped.get_staged_model() is None
+    qs = rng.standard_normal((64, 12)).astype(np.float32)
+    got = swapped.get_model().top_n_batch(qs, 10)
+    want = fresh.get_model().top_n_batch(qs, 10)
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=1e-5)

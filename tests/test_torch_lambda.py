@@ -20,8 +20,9 @@
   accounting, ``faults``' schedule parsing and firing, the ``metrics``
   text rendering of a registry, ``spans``' traceparent injection and
   parsing, and ``classutils``; then the port's own changes: the
-  one-device ``ComputeContext``, ``StepTracer`` refusing
-  ``profile-dir``, and the flight recorder's bundle.
+  one-device ``ComputeContext``, ``StepTracer``'s ``profile-dir``
+  (taken, captured only with tracing enabled), and the flight recorder's
+  bundle.
 """
 
 from __future__ import annotations
@@ -854,10 +855,18 @@ def test_compute_context_is_one_device_and_refuses_a_mesh():
                 ctx(platform=platform)
 
 
-def test_step_tracer_refuses_profile_dir_and_feeds_the_registry():
-    with pytest.raises(NotImplementedError, match="profile-dir"):
-        StepTracer(cfg.overlay_on({"oryx.tracing.profile-dir": "/x"},
-                                  cfg.get_default()), "batch")
+def test_step_tracer_refuses_profile_dir_and_feeds_the_registry(tmp_path):
+    """The tracer feeds the registry. It used to refuse
+    ``oryx.tracing.profile-dir``; it now takes it, and captures its steps
+    only with tracing enabled (the reference's rule)."""
+    quiet = StepTracer(cfg.overlay_on(
+        {"oryx.tracing.profile-dir": str(tmp_path / "p")}, cfg.get_default()),
+        "batch")
+    assert quiet.profile_dir == str(tmp_path / "p") and not quiet.enabled
+    with quiet.step("generation"):
+        pass
+    assert not (tmp_path / "p").exists()
+    quiet.close()
     key = 'tier="batch",step="generation"'
     before = _counter("oryx_step_items_total", key)
     tracer = StepTracer(cfg.overlay_on({"oryx.tracing.enabled": True},
@@ -880,8 +889,8 @@ def test_flight_recorder_bundle_names_the_port():
     assert bundle["versions"]["oryx_tpu_torch"] == "0.1.0"
     assert bundle["versions"]["torch"] == torch.__version__
     assert "metrics" in bundle and "slowest_traces" in bundle
-    # the SLO status and the series window came with common/{slo,tsdb};
-    # the memory section waits for profiling
-    assert "slo" in bundle
-    assert not {"memory", "memory_error", "slo_error", "history_error"} & set(bundle)
+    # the SLO status and the series window came with common/{slo,tsdb},
+    # the memory section with common/profiling
+    assert "slo" in bundle and bundle["memory"]["host_rss_bytes"] > 0
+    assert not {"memory_error", "slo_error", "history_error"} & set(bundle)
     json.dumps(bundle)

@@ -58,6 +58,7 @@ def _port_sources():
     yield os.path.join(REPO, "fp32_ceiling.py")
     yield os.path.join(REPO, "profiler_gap.py")
     yield os.path.join(REPO, "netbroker_rpc.py")
+    yield os.path.join(REPO, "rdf_seed_spread.py")
 
 
 def _imported_modules(path):
@@ -97,7 +98,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "models/rdf/pmml_codec.py", "models/rdf/update.py",
             "models/rdf/speed.py", "models/rdf/serving.py",
             "serving/resources/classreg.py", "common/federation.py",
-            "tools/trace_summary.py", "common/checkpoint.py"} <= scanned
+            "tools/trace_summary.py", "common/checkpoint.py",
+            "common/profiling.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -210,6 +212,27 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(name):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_cost_accounting_on_the_cpu_never_initialises_cuda():
+    """``als_train`` records one call per half into the device cost
+    accounting; on the CPU that neither initialises CUDA nor wires the
+    device gauges (the profiling module reads ``torch.cuda`` only once the
+    process has a CUDA context)."""
+    from oryx_tpu_torch.common import profiling
+
+    batch = RatingBatch(np.array([0, 1, 2], np.int32), np.array([1, 0, 1], np.int32),
+                        np.ones(3, np.float32), [0, 1, 2], [0, 1])
+    snap0 = metrics.default_registry().snapshot()["oryx_device_calls_total"]
+    train.als_train(batch, 3, 0.1, 1.0, True, 2, device="cpu")
+    snap1 = metrics.default_registry().snapshot()["oryx_device_calls_total"]
+    for half in ("user_half", "item_half"):
+        label = f'program="als.train.{half}"'
+        assert snap1[label] - snap0.get(label, 0.0) == 2
+    if not torch.cuda.is_available():
+        assert not torch.cuda.is_initialized()
+        assert not profiling._torch_wired
+        assert profiling.memory_snapshot()["devices"] == {}
 
 
 class _NeverRun(BatchLayerUpdate):
@@ -335,11 +358,10 @@ def test_serving_layer_refuses_a_rescorer_provider_at_construction():
 
 @pytest.mark.parametrize("key,value", [
     ("oryx.serving.compute.sharded", True),
-    ("oryx.serving.compute.precompile-batches", True),
 ])
 def test_serving_manager_still_refuses_what_is_not_ported(key, value):
-    """Sharded serving and the staged swap stay refused at construction;
-    every other serving setting of the reference is taken."""
+    """Sharded serving stays refused at construction; every other serving
+    setting of the reference is taken, the staged swap's too."""
     with pytest.raises(NotImplementedError):
         ALSServingModelManager(_serving_config(0, {key: value}), device="cpu")
     taken = ALSServingModelManager(_serving_config(0, {
@@ -348,3 +370,7 @@ def test_serving_manager_still_refuses_what_is_not_ported(key, value):
         "oryx.serving.rescore-factor": 2.0}), device="cpu")
     assert (taken.device_dtype, taken.index_enabled, taken.index_cells,
             taken.rescore_factor) == ("int8", True, 4, 2.0)
+    staged = ALSServingModelManager(_serving_config(0, {
+        "oryx.serving.compute.precompile-batches": True,
+        "oryx.compile.swap-deadline-sec": 5.0}), device="cpu")
+    assert staged._prewarm_swap and staged._swap_deadline == 5.0

@@ -538,3 +538,16 @@ def test_smoke_rdf_phase_at_a_small_size(monkeypatch):
     assert out["generation"]["accuracy"] >= 0.90
     assert out["http"]["statuses"] == {200: 112}
     assert not any(out["launches"].values())
+
+
+def test_rand_seeded_scopes_the_test_seed_to_its_block():
+    """``rand.seeded`` (the smoke's RDF generation runs under it): inside,
+    every generator ``get_random`` hands out draws from the given seed;
+    after it, the switch and the seed are as they were."""
+    before = (rand._use_test_seed, rand._seed)
+    with rand.seeded(7):
+        a = rand.get_random().random(3)
+        b = rand.get_random().random(3)
+    assert np.array_equal(a, b)
+    assert np.array_equal(a, np.random.Generator(np.random.PCG64(7)).random(3))
+    assert (rand._use_test_seed, rand._seed) == before

@@ -10,7 +10,7 @@ known items, unknown ids, bad arguments, the writes with gzip and
 multipart bodies), compared for status, content type, body (ids equal,
 scores within 1e-5 relative in float32), the model-generation header and
 what each layer wrote to its input topic; ``/readyz`` before and after the
-model; and the k-means routes on both. Last, the port's own rules: no
+model; and the k-means routes on both. Last, the port's own rules:
 ``/debug/profile``, the probes, and a closed layer leaves no thread.
 """
 
@@ -19,6 +19,7 @@ from __future__ import annotations
 import gzip
 import json
 import math
+import os
 import subprocess
 import threading
 import time
@@ -380,8 +381,9 @@ def test_tls_serving(tmp_path, tiny):
 def test_precompile_batches_warms_pow2_ladder(tiny, monkeypatch):
     """With precompile-batches on, a ready model's batched top-N runs in the
     background at pow2 sizes, smallest first, each size without and with
-    exclusions. The port's manager has no staged swap, so prewarm-swap is
-    off here (with it on, the manager refuses the setting)."""
+    exclusions. prewarm-swap is off here, so the warmer warms the serving
+    generation in place (the staged swap's cases are in
+    ``tests/test_torch_staged_swap.py``)."""
     sizes = []
     orig = ALSServingModel.top_n_batch
 
@@ -733,9 +735,12 @@ def test_probes_metrics_lineage_and_no_profiler(serving):
     client.get(f"/recommend/{batch.users.index_to_id[0]}")
     text = client.get("/metrics").text
     assert 'oryx_serving_requests_total{route="/recommend/{userID}",method="GET",status="200"}' in text
-    # the on-demand profiler is not ported: its route does not exist
-    assert client.post("/debug/profile").status_code == 404
-    assert client.get("/debug/profile").status_code == 404
+    # the on-demand profiler: POST only, bounded by max-capture-sec
+    assert client.get("/debug/profile").status_code == 405
+    r = client.post("/debug/profile", params={"seconds": "0.1"})
+    assert r.status_code == 200 and os.path.isdir(r.json()["trace_dir"])
+    assert client.post("/debug/profile",
+                       params={"seconds": "1e6"}).status_code == 400
     lineage = client.get("/lineage").json()
     assert lineage["live"]["generation"] == "anon-1"
     assert "slo" in client.get("/debug/bundle").json()
