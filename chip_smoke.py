@@ -303,6 +303,31 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``UP``s: 1,000 ``/assign`` and ``/distanceToNearest`` against
            ``nearest_cluster``, 100 lines through ``POST /add`` onto its
            input topic) and is printed in this line as ``kmeans``.
+  tools    the operator's tools of ``oryx_tpu_torch/tools``, reusing what
+           earlier phases built (no second profiler session, no training):
+           the ``profile`` session's Chrome trace, exported by
+           ``device_profiles``, read back by ``trace_summary`` in process
+           and as ``python -m oryx_tpu_torch.tools.trace_summary <dir>
+           --top 20`` (exit 0, the same top rows): the gather-Gramian's,
+           the SPD solve's and the sweep's kernels are op rows, each
+           counted as often as its wrapper launched in the session, each
+           with its self ms within 1% of the profiler's own sum of that
+           kernel's device time, and no ``gpu_user_annotation`` span (the
+           windows) an op row; the export's seconds and the trace's bytes.
+           Then, on ``serving_http``'s layer after its load levels: the
+           tool's metrics view of ``/metrics`` (the device gauges' rows
+           equal what ``rendered_gauge`` reads from the same text; the CLI
+           on the URL exits 0), ``--trace-id`` of one traced
+           ``/recommend`` (the ingress span, the coalescer's queue wait
+           under it, the device call with ``batch.size`` and
+           ``pad.waste_rows``), and ``traffic.TrafficRunner`` with the
+           reference's ALS mix over the loop's ids, 4 threads, no
+           interval, 10 s, from the phase's client process: each endpoint
+           sent requests, no server error, no exception (404s for ids
+           outside the model are reported),
+           requests per second and p50 / p99 per endpoint; every answered
+           ``/pref`` lands on the input topic and its ``UP``s are applied
+           by both managers before the phase goes on.
   serving_swap
            the staged generation swap, inside the loop after
            ``serving_http``: the loop's update stream (k = 50) copied to
@@ -404,6 +429,7 @@ from __future__ import annotations
 
 import contextlib
 import http.client
+import io
 import json
 import multiprocessing as mp
 import re
@@ -431,6 +457,7 @@ from oryx_tpu_torch.common import metrics
 from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common import slo
+from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.lambda_rt.batch import BatchLayer
 from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
@@ -460,6 +487,7 @@ from oryx_tpu_torch.ops import vectormath
 from oryx_tpu_torch.pmml import pmmlutils
 from oryx_tpu_torch.serving.app import ServingLayer
 from oryx_tpu_torch.tools import trace_summary
+from oryx_tpu_torch.tools import traffic
 from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch import state
 
@@ -993,12 +1021,27 @@ def iteration_fn(user_side, item_side, y):
 WINDOW = "chip_smoke.window"
 
 
-def device_profiles(windows: dict, during=None) -> dict:
+def launch_counts() -> dict:
+    """The wrappers' launches so far (``K.LAUNCHES``), with the
+    gather-Gramian's second launch (its reduce) apart."""
+    out = dict(K.LAUNCHES)
+    out["gather_gramian_accumulate.reduce"] = sum(
+        c for (kernel, _), c in K.SHAPE_LAUNCHES.items()
+        if kernel == "gather_gramian_accumulate.reduce")
+    return out
+
+
+def device_profiles(windows: dict, during=None, export=None) -> dict:
     """Each function of ``windows`` once to warm up, then each once more,
     back to back, in ONE ``torch.profiler`` session, each inside a window
     of its own: per window, device time by kernel and the share of the
     window's host wall time in which no kernel ran. ``during`` (no
     argument) runs inside the session after the windows, in none of them.
+    ``export`` (a dict with ``"dir"``) gets the session's Chrome trace
+    written there (``prof.export_chrome_trace``; ``"trace"``,
+    ``"export_s"``, ``"bytes"``), the session's device events summed by
+    name (``"device_events"``: name -> [count, microseconds]) and the
+    kernel wrappers' launches in it (``"launches"``, :func:`launch_counts`).
 
     One session serves every window because on the H100 machines a session
     begun some seconds after the previous one ended has recorded no device
@@ -1017,15 +1060,30 @@ def device_profiles(windows: dict, during=None) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
+        launches0 = launch_counts()
         for i, (name, fn) in enumerate(windows.items()):
             with record_function(f"{WINDOW}:{i}"):
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 walls_us[name] = (time.perf_counter() - t0) * 1e6
+        launches = {k: v - launches0[k] for k, v in launch_counts().items()}
         if during is not None:
             during()
     events = prof.events()
+    if export is not None:
+        t0 = time.perf_counter()
+        trace = Path(export["dir"]) / "smoke.pt.trace.json"
+        prof.export_chrome_trace(str(trace))
+        sums: dict = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(WINDOW):
+                c = sums.setdefault(e.name, [0, 0.0])
+                c[0] += 1
+                c[1] += e.time_range.end - e.time_range.start
+        export.update(trace=str(trace), export_s=time.perf_counter() - t0,
+                      bytes=trace.stat().st_size, device_events=sums,
+                      launches=launches)
     opened = sorted((e.time_range.start, int(e.name.split(":")[1]))
                     for e in events if e.name.startswith(WINDOW + ":")
                     and e.device_type != DeviceType.CUDA)
@@ -1066,6 +1124,276 @@ def window_profile(events, wall_us: float) -> dict:
     }
 
 
+# -- the operator's tools ------------------------------------------------------
+
+#: The hand-written kernels as a trace names them (each lives in an
+#: anonymous namespace of its source), with the wrapper launch each counts in.
+TRACE_KERNELS = {
+    "gather_gramian_kernel": "gather_gramian_accumulate",
+    "gather_gramian_reduce": "gather_gramian_accumulate.reduce",
+    "spd_solve_warp_kernel": "spd_solve_batched",
+    "spd_solve_kernel": "spd_solve_batched",
+    "assign_kernel": "kmeans_assign_accumulate",
+    "partial_kernel": "kmeans_assign_accumulate",
+    "reduce_kernel": "kmeans_assign_accumulate",
+}
+#: a kernel's self ms in the trace against the profiler's own sum
+TRACE_SELF_REL = 0.01
+TOOLS_TOP = 20
+TOOLS_TRAFFIC_S = 10.0
+TOOLS_TRAFFIC_THREADS = 4
+TOOLS_GAUGES = ("oryx_device_mfu", "oryx_device_hbm_bandwidth_fraction",
+                "oryx_device_flops_per_second", "oryx_device_bytes_per_second")
+
+
+def own_kernel(name: str) -> "str | None":
+    """The hand-written kernel a trace event's name is, or None."""
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+    return m.group(1) if m and m.group(1) in TRACE_KERNELS else None
+
+
+def op_lines(rows) -> list:
+    """Op rows as ``trace_summary``'s trace mode prints them."""
+    return [f"  {ms:10.2f}  x{cnt:<6d} {name[:90]}" for name, ms, cnt in rows]
+
+
+def tools_trace(export: dict, n_windows: int) -> dict:
+    """The profiled session's Chrome trace (``device_profiles``' export)
+    read back by the port's ``trace_summary``: in process, every op row of
+    a hand-written kernel has the count and, within 1%, the self ms of
+    the profiler's own events of that name, and the kernels' counts are
+    the wrappers' launches in the session (the sweep's three kernels one
+    each a launch; the gather-Gramian's and the SPD solve's kernels one a
+    launch, the gather-Gramian's reduce one a reduce launch); no
+    ``gpu_user_annotation`` span (the windows) is an op row, and each
+    window is in the windows section. Then ``python -m
+    oryx_tpu_torch.tools.trace_summary <dir> --top 20`` exits 0 and prints
+    the same top 20 op rows."""
+    trace_dir = export["dir"]
+    t0 = time.perf_counter()
+    windows: list = []
+    _, rows = trace_summary.summarize(trace_dir, top=1 << 30, windows=windows)
+    summarize_s = time.perf_counter() - t0
+    events = export["device_events"]
+    kernels: dict = {}
+    for name, ms, count in rows:
+        base = own_kernel(name)
+        if base is None:
+            continue
+        ev_count, ev_us = events.get(name, (0, 0.0))
+        check(count == ev_count, f"tools: {name}: {count} in the trace, "
+              f"{ev_count} device events in the profiler")
+        check(abs(ms - ev_us / 1e3) <= TRACE_SELF_REL * ev_us / 1e3,
+              f"tools: {name}: {ms} self ms in the trace, {ev_us / 1e3} ms in "
+              "the profiler")
+        k = kernels.setdefault(base, {"rows": 0, "count": 0, "self_ms": 0.0,
+                                      "profiler_ms": 0.0})
+        k["rows"] += 1
+        k["count"] += count
+        k["self_ms"] += ms
+        k["profiler_ms"] += ev_us / 1e3
+    row_names = {n for n, _, _ in rows}
+    missed = [n for n in events if own_kernel(n) and n not in row_names]
+    check(not missed, f"tools: device events of no op row: {missed}")
+    for base in ("gather_gramian_kernel", "assign_kernel", "partial_kernel",
+                 "reduce_kernel"):
+        check(base in kernels, f"tools: no {base} op row: {sorted(kernels)}")
+    spd = [b for b in ("spd_solve_warp_kernel", "spd_solve_kernel") if b in kernels]
+    check(bool(spd), f"tools: no SPD kernel op row: {sorted(kernels)}")
+    launches = export["launches"]
+    counted: dict = {}
+    for base, k in kernels.items():
+        wrapper = TRACE_KERNELS[base]
+        k["launches"] = launches[wrapper]
+        if wrapper == "kmeans_assign_accumulate":  # three kernels a launch
+            check(k["count"] == k["launches"], f"tools: {k['count']} {base} "
+                  f"kernels in the trace, {k['launches']} sweep launches")
+        else:
+            counted[wrapper] = counted.get(wrapper, 0) + k["count"]
+    for wrapper in ("gather_gramian_accumulate", "gather_gramian_accumulate.reduce",
+                    "spd_solve_batched"):
+        check(counted.get(wrapper, 0) == launches[wrapper],
+              f"tools: {counted.get(wrapper, 0)} {wrapper} kernels in the trace, "
+              f"{launches[wrapper]} launches in the session")
+    window_names = {n for n, _, _ in windows}
+    check(not window_names & row_names,
+          f"tools: an annotation is an op row: {window_names}")
+    want = {f"{WINDOW}:{i}" for i in range(n_windows)}
+    check(want <= window_names, f"tools: windows {sorted(window_names)}, "
+          f"expected {sorted(want)}")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "oryx_tpu_torch.tools.trace_summary", trace_dir,
+         "--top", str(TOOLS_TOP)],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"tools: trace_summary exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    printed = cli.stdout.split(f"top {TOOLS_TOP} ops on matching tracks")[1]
+    printed = printed.split("\n\n")[0].splitlines()[1:]
+    check(printed == op_lines(rows[:TOOLS_TOP]),
+          f"tools: the CLI's op rows {printed} differ from {op_lines(rows[:TOOLS_TOP])}")
+    return {"export_s": export["export_s"], "trace_bytes": export["bytes"],
+            "summarize_s": summarize_s, "cli_s": cli_s, "op_rows": len(rows),
+            "kernels": kernels, "session_launches": launches,
+            "windows": {n: {"ms": ms, "count": c} for n, ms, c in windows
+                        if n.startswith(WINDOW)},
+            "top_ops": [{"name": n[:90], "self_ms": ms, "count": c}
+                        for n, ms, c in rows[:8]]}
+
+
+def tools_metrics(client, port: int, device) -> dict:
+    """``trace_summary``'s metrics view of the layer's ``/metrics``: from
+    one fetched text, each device gauge's value in the tool's rows equals
+    what :func:`rendered_gauge` reads (``oryx_device_mfu``, the HBM
+    fraction, the two rates, and on the card ``oryx_device_memory_*``);
+    then the tool's CLI on the URL exits 0 with its device-performance
+    section."""
+    status, _, data = client.request("GET", "/metrics")
+    check(status == 200, f"tools: GET /metrics: {status}")
+    text = data.decode()
+    _, _, scalars = trace_summary.summarize_metrics(text)
+    rows = {series: value for series, value, _ in trace_summary.device_perf_rows(scalars)}
+    gauges: dict = {}
+    for name, key, value in scalars:
+        if name not in TOOLS_GAUGES and not name.startswith("oryx_device_memory_"):
+            continue
+        labels = ",".join(f'{k}="{v}"' for k, v in key)
+        want = rendered_gauge(text, name, labels)
+        series = name + ("{" + ",".join(f"{k}={v}" for k, v in key) + "}" if key else "")
+        check(series in rows and (rows[series] == want
+                                  or (rows[series] != rows[series] and want != want)),
+              f"tools: {series}: the tool's row {rows.get(series)}, /metrics {want}")
+        gauges[series] = want
+    names = {s.split("{")[0] for s in gauges}
+    need = {"oryx_device_mfu", "oryx_device_hbm_bandwidth_fraction"}
+    if resolve(device).type == "cuda":
+        need |= {"oryx_device_memory_bytes_in_use", "oryx_device_memory_peak_bytes"}
+    check(need <= names, f"tools: device-performance rows {sorted(names)}, "
+          f"expected {sorted(need)}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = trace_summary.main([f"http://127.0.0.1:{port}/metrics", "--metrics",
+                                 "--top", "5"])
+    out = printed.getvalue()
+    check(rc == 0 and "device performance" in out and "MFU" in out,
+          f"tools: trace_summary --metrics exited {rc}: {out[-1000:]}")
+    return {"gauges": gauges, "histograms": out.count("\n  oryx_")}
+
+
+def tools_trace_id(client, port: int, user: str) -> dict:
+    """One ``/recommend`` with a ``traceparent`` of a fresh trace id, then
+    ``trace_summary --trace-id`` on the layer's URL: the tree holds the
+    ingress span, the coalescer's queue wait under it, and the device call
+    with its batch-size and pad-waste attributes."""
+    trace_id = spans.new_trace_id()
+    status, _, data = client.request(
+        "GET", f"/recommend/{user}?howMany=10",
+        headers={"traceparent": f"00-{trace_id}-{spans.new_span_id()}-01"})
+    check(status == 200, f"tools: traced /recommend: {status} {data[:200]!r}")
+    want = ("http GET /recommend/{userID}", "coalescer.queue_wait",
+            "coalescer.device_call")
+
+    def tree():
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = trace_summary.main([f"http://127.0.0.1:{port}", "--trace-id", trace_id])
+        return rc, printed.getvalue()
+
+    rc, out = tree()
+    deadline = time.perf_counter() + 10
+    while not (rc == 0 and all(w in out for w in want)) and time.perf_counter() < deadline:
+        time.sleep(0.05)
+        rc, out = tree()
+    check(rc == 0 and all(w in out for w in want)
+          and "batch.size=" in out and "pad.waste_rows=" in out,
+          f"tools: trace_summary --trace-id exited {rc}: {out}")
+    lines = out.splitlines()
+    # each line: duration, " ms  ", two spaces a level, the span's name
+    depth = {w: next(len(rest) - len(rest.lstrip())
+                     for rest in (ln.split(" ms  ", 1)[-1] for ln in lines)
+                     if rest.lstrip().startswith(w))
+             for w in want}
+    check(depth[want[0]] < depth[want[1]],
+          f"tools: the queue wait is not under the ingress span: {out}")
+    return {"trace_id": trace_id, "spans": int(lines[0].split(": ")[1].split()[0]),
+            "tree": lines[1:-2]}
+
+
+def traffic_run(port: int, n_users: int, n_items: int, threads: int,
+                seconds: float) -> dict:
+    """``traffic.TrafficRunner`` with the reference's ALS mix
+    (``build_als_endpoints(n_users, n_items)``) at ``port``: ``threads``
+    threads, no interval, ``seconds`` seconds. Run in a client process of
+    its own (as ``http_load`` is), so the load's threads do not share the
+    serving layer's interpreter. Returns the runner's counters, and per
+    endpoint the requests sent and answered (2xx) with p50 / p99 ms of the
+    answered."""
+    endpoints = traffic.build_als_endpoints(n_users, n_items)
+    sent = {e.name: 0 for e in endpoints}
+    lock = threading.Lock()
+    for e in endpoints:
+        def counted(rng, make=e.make_request, name=e.name):
+            with lock:
+                sent[name] += 1
+            return make(rng)
+        e.make_request = counted
+    runner = traffic.TrafficRunner([f"127.0.0.1:{port}"], endpoints, interval_ms=0,
+                                   threads=threads, duration_sec=seconds)
+    t0 = time.perf_counter()
+    runner.run()
+    elapsed = time.perf_counter() - t0
+    by_endpoint = {}
+    for e in endpoints:
+        ms = np.asarray(e.latencies_ms)
+        by_endpoint[e.name] = {
+            "sent": sent[e.name], "answered": e.count,
+            "p50_ms": float(np.percentile(ms, 50)) if len(ms) else None,
+            "p99_ms": float(np.percentile(ms, 99)) if len(ms) else None}
+    return {"seconds": elapsed, "threads": threads, "requests": runner.requests,
+            "rps": runner.requests / elapsed, "client_errors": runner.client_errors,
+            "server_errors": runner.server_errors, "exceptions": runner.exceptions,
+            "endpoints": by_endpoint}
+
+
+def tools_traffic(pool, port: int, loop: "LambdaLoop", layer) -> dict:
+    """:func:`traffic_run` in the client process ``pool``, over the loop's
+    ids (``LOOP_USERS`` users, ``N_ITEMS`` items), 4 threads,
+    ``TOOLS_TRAFFIC_S`` seconds. Each endpoint is sent requests; no server
+    error and no exception (a 404 for an id outside the loop's model is a
+    client error, reported). Each answered ``/pref`` is one line on the
+    input topic; the running speed layer folds them in and both managers
+    apply its ``UP``s before the phase goes on."""
+    input_start = loop.broker.size(loop.input_topic)
+    since = len(loop.watch.commits)
+    updates = loop.update_size()
+    out = pool.apply(traffic_run, (port, LOOP_USERS, N_ITEMS,
+                                   TOOLS_TRAFFIC_THREADS, TOOLS_TRAFFIC_S))
+    sent = {name: e["sent"] for name, e in out["endpoints"].items()}
+    check(all(sent.values()), f"tools: traffic sent no request to some endpoint: {sent}")
+    check(out["server_errors"] == 0 and out["exceptions"] == 0,
+          f"tools: traffic: {out['server_errors']} server errors, "
+          f"{out['exceptions']} exceptions")
+    input_end = loop.broker.size(loop.input_topic)
+    prefs = out["endpoints"]["pref"]["answered"]
+    check(input_end - input_start == prefs,
+          f"tools: {prefs} /pref answered, {input_end - input_start} input lines")
+    if prefs:
+        t_last = time.perf_counter()
+        loop.wait_commit(loop.speed_group, input_end, since, 120,
+                         "tools: the speed generation of the traffic's /pref")
+        update_end = loop.update_size()
+        check(update_end > updates, "tools: the traffic's /pref published no UP")
+        wait_until(lambda: applied_messages(layer) >= update_end, 120,
+                   "tools: the layer applies the traffic's UPs",
+                   layers=loop.layers, poll=0.001)
+        loop.wait_applied(loop.served, update_end, 120,
+                          "tools: the loop's manager applies the traffic's UPs")
+        out["pref_ups"] = update_end - updates
+        out["pref_to_applied_s"] = time.perf_counter() - t_last
+    return out
+
+
 # -- device cost accounting, memory telemetry, the profiler session -----------
 
 #: the window of the rate gauges while the profiling phase reads them
@@ -1073,9 +1401,11 @@ PROFILING_WINDOW_S = 2.0
 PROFILING_BROKER = "memory:profiling"
 
 
-def rendered_gauge(text: str, name: str) -> float:
-    """A gauge's value in a Prometheus text rendering (``/metrics``'s)."""
-    m = re.search(rf"^{name} (\S+)$", text, re.M)
+def rendered_gauge(text: str, name: str, labels: str = "") -> float:
+    """A gauge's value in a Prometheus text rendering (``/metrics``'s);
+    ``labels`` as rendered between the braces (``device="cuda:0"``)."""
+    series = re.escape(f"{name}{{{labels}}}" if labels else name)
+    m = re.search(rf"^{series} (\S+)$", text, re.M)
     check(m is not None, f"profiling: {name} missing from /metrics")
     return float(m.group(1))
 
@@ -3412,14 +3742,18 @@ def start_layer(conf, what: str, device=None):
 
 def close_layer(layer, port: int, what: str, before) -> dict:
     """Close ``layer``: none of its threads (started since ``before``) may
-    be left, and its port must be free."""
+    be left, and its port must be free: a listener may bind it again, as a
+    restarted server does (``SO_REUSEADDR``: connections the layer closed
+    itself, such as a ``urllib`` client's, linger in TIME_WAIT on it)."""
     t0 = time.perf_counter()
     layer.close()
     close_s = time.perf_counter() - t0
     left = layer_threads(before)
     check(not left, f"{what}: threads left after close(): {left}")
     with socket.socket() as probe:
+        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         probe.bind(("0.0.0.0", port))
+        probe.listen(1)
     check(layer._failure is None and layer.consumer_restarts == 0,
           f"{what}: consumer failure {layer._failure!r}, "
           f"{layer.consumer_restarts} restarts")
@@ -3605,6 +3939,14 @@ def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
                           f"serving_http: load at {concurrency} did not batch: {level}")
                 levels.append(level)
             out["load"] = levels
+
+            # the operator's tools against this layer (the tools line)
+            t_tools = time.perf_counter()
+            out["tools"] = {
+                "metrics": tools_metrics(client, port, device),
+                "trace_id": tools_trace_id(client, port, sample[0]),
+                "traffic": tools_traffic(pool, port, loop, layer)}
+            out["tools"]["seconds"] = time.perf_counter() - t_tools
 
             # probes
             status, _, data = client.request("GET", "/readyz")
@@ -5639,9 +5981,15 @@ def main() -> int:
     prof_flagship, _, _ = flagship_model(np.random.default_rng(SEED + 43))
     prof_flagship.y_snapshot()
     busy: dict = {}
-    profiles = device_profiles(windows,
-                               during=lambda: busy.update(debug_profile_busy(prof_port)))
-    del windows
+    # the session's Chrome trace, read back by the port's trace_summary
+    # (the tools line)
+    with tempfile.TemporaryDirectory(prefix="oryx-trace-") as trace_dir:
+        export = {"dir": trace_dir}
+        profiles = device_profiles(
+            windows, during=lambda: busy.update(debug_profile_busy(prof_port)),
+            export=export)
+        tools_read_back = tools_trace(export, len(windows))
+    del windows, export
     torch.cuda.empty_cache()
     emit("profile", **profiles["als_iteration"])
     prof = profiling_phase(prof_port, busy, profiles, user_side, item_side,
@@ -5683,8 +6031,15 @@ def main() -> int:
     serving_http = loop.pop("serving_http")
     serving_swap = loop.pop("serving_swap")
     quant_http = loop.pop("serving_quant_http")
+    tools = serving_http.pop("tools")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
+    tools_s = (tools.pop("seconds") + tools_read_back["export_s"]
+               + tools_read_back["summarize_s"] + tools_read_back["cli_s"])
+    emit("tools", trace=tools_read_back, **tools, gpu=smi, seconds=tools_s,
+         reduced={"traffic": f"{TOOLS_TRAFFIC_S} s at {TOOLS_TRAFFIC_THREADS} "
+                             "threads, no interval, from a client process, on "
+                             "the loop's layer"})
     emit("serving_swap", **serving_swap, gpu=smi, reduced={
         "generation_2": f"ALSUpdate.run_update at k = {SWAP_FEATURES} on the lines "
                         f"of the first {SWAP_USERS} of the loop's {LOOP_USERS} users",

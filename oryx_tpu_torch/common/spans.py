@@ -32,7 +32,8 @@ request path; arXiv:2501.10546 makes the tier-crossing case):
     the ring has wrapped — the p99 outlier survives until a slower one
     displaces it.
   * ``GET /trace`` (serving/resources/common.py) renders both views;
-    ``tools/trace_summary.py --trace-id`` prints one trace as a tree.
+    ``python -m oryx_tpu_torch.tools.trace_summary <url> --trace-id <id>``
+    prints one trace as a tree.
 
 Config (``oryx.tracing.spans.*``): ``enabled`` (default true; a disabled
 recorder costs one attribute read per would-be span), ``ring-size``,

@@ -12,10 +12,9 @@ Two changes from the JAX package:
 
   * ``__init__`` configures only the hooks the port has (metrics, spans,
     resilience, faults, blackbox, the SLO engine, the tsdb sampler, the
-    ``tcp:`` client defaults, the file broker's fsync policy, profiling).
-    The reference's compile cache has no torch counterpart; its
-    factor-arena sizing knobs and sanitizer hooks are not ported (ROADMAP
-    Queue 1).
+    ``tcp:`` client defaults, the file broker's fsync policy, profiling,
+    the factor arena's sizing). The reference's compile cache has no torch
+    counterpart; its sanitizer hooks are not ported (ROADMAP Queue 1).
   * The context's device is resolved first in ``start()``, before any
     topic is checked, any thread spawned or any socket opened: a layer
     configured for the card on a host without one raises there, instead of
@@ -94,6 +93,12 @@ class AbstractLayer:
         # /metrics surface as serving replicas — peaks and gauges
         # configure here too (the device half wires once CUDA is up)
         profiling.configure(config)
+        # factor-arena sizing: the speed tier's model stores are arena
+        # users exactly like serving's, and honour the same
+        # oryx.serving.arena.* knobs
+        from oryx_tpu_torch.models.als import vectors as als_vectors
+
+        als_vectors.configure(config)
         self.tracer = StepTracer(config, tier)
         self.id = config.get_string("oryx.id", None)
         self.input_broker = config.get_string("oryx.input-topic.broker")

@@ -43,8 +43,12 @@ since a consumer's version into one :class:`HostDelta`.
 
 Each store reports its slab's bytes and fill (live rows over capacity) to
 the ``oryx_factor_arena_*`` gauges (:mod:`oryx_tpu_torch.common.profiling`).
-The reference's arena sizing and compaction knobs (``oryx.serving.arena.*``)
-are not ported.
+Its capacity follows the reference's: a new slab holds
+``oryx.serving.arena.initial-rows`` rows (or what a ``reserve`` or a first
+bulk load asks for, if more), grows by doubling, and a re-pack after a
+removal or a retain shrinks it back to ``initial-rows`` (doubled until the
+survivors fit) when they fill ``oryx.serving.arena.min-fill`` of it or less
+(:func:`configure`).
 """
 
 from __future__ import annotations
@@ -60,8 +64,26 @@ from oryx_tpu_torch.common import profiling
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.common.lockutils import AutoReadWriteLock
 
+#: Process-wide arena sizing, set by :func:`configure` from
+#: ``oryx.serving.arena.*``. Plain ints/floats: reads are atomic.
+_DEFAULT_INITIAL_ROWS = 1024
+_DEFAULT_MIN_FILL = 0.25
+
 #: Bounded per-write log: (version, row, was_new).
 _LOG_MAX = 65536
+
+
+def configure(config) -> None:
+    """Apply ``oryx.serving.arena.*`` process-wide, as the reference does:
+    ``initial-rows`` (at least 1) seeds the slabs of stores made after the
+    call, ``min-fill`` (clamped to [0, 1]) decides every later re-pack."""
+    global _DEFAULT_INITIAL_ROWS, _DEFAULT_MIN_FILL
+    _DEFAULT_INITIAL_ROWS = max(
+        1, config.get_int("oryx.serving.arena.initial-rows", 1024)
+    )
+    _DEFAULT_MIN_FILL = min(
+        1.0, max(0.0, config.get_float("oryx.serving.arena.min-fill", 0.25))
+    )
 
 
 def _host_gather(slab: np.ndarray, rows) -> np.ndarray:
@@ -138,7 +160,8 @@ class HostDelta:
 
 
 class FeatureVectorStore:
-    def __init__(self):
+    def __init__(self, initial_rows: "int | None" = None):
+        self._initial_rows = initial_rows or _DEFAULT_INITIAL_ROWS
         self._lock = AutoReadWriteLock()
         self._ids: list[str] = []
         self._index: dict[str, int] = {}
@@ -166,17 +189,26 @@ class FeatureVectorStore:
 
     # -- slab plumbing (callers hold the write lock) -------------------------
     def _ensure(self, k: int, need: int) -> None:
+        """A slab of width ``k`` holding at least ``need`` rows."""
         if self._slab is None:
-            self._slab = np.zeros((max(need, 16, self._reserve_rows), k),
-                                  dtype=np.float32)
+            self._slab = np.zeros(
+                (max(self._initial_rows, self._reserve_rows, need, 1), k),
+                dtype=np.float32)
         elif self._slab.shape[1] != k:
             raise ValueError(
                 f"factor width changed: store holds {self._slab.shape[1]}-"
                 f"feature rows, got {k}"
             )
         elif need > self._slab.shape[0]:
-            grown = np.zeros((max(need, 2 * self._slab.shape[0]), k),
-                             dtype=np.float32)
+            self._grow(need)
+
+    def _grow(self, need: int) -> None:
+        """Double the capacity until ``need`` rows fit, rows in place."""
+        cap = max(self._slab.shape[0], 1)
+        while cap < need:
+            cap *= 2
+        if cap != self._slab.shape[0]:
+            grown = np.zeros((cap, self._slab.shape[1]), dtype=np.float32)
             grown[: len(self._ids)] = self._slab[: len(self._ids)]
             self._slab = grown
 
@@ -184,6 +216,8 @@ class FeatureVectorStore:
         row = self._index.get(id_)
         if row is None:
             row = len(self._ids)
+            if row >= self._slab.shape[0]:
+                self._grow(row + 1)
             self._ids.append(id_)
             self._index[id_] = row
             return row, True
@@ -199,8 +233,12 @@ class FeatureVectorStore:
         slab and a fresh id list and index: snapshots holding the old ones
         stay valid."""
         rows = np.asarray([self._index[i] for i in keep], dtype=np.int64)
-        slab = np.zeros((max(len(keep), 16), self._slab.shape[1]),
-                        dtype=np.float32)
+        cap = self._slab.shape[0]
+        if len(keep) <= cap * _DEFAULT_MIN_FILL:
+            cap = max(self._initial_rows, 1)
+            while cap < len(keep):
+                cap *= 2
+        slab = np.zeros((cap, self._slab.shape[1]), dtype=np.float32)
         slab[: len(keep)] = self._slab[rows]
         self._slab = slab
         self._ids = keep
@@ -210,7 +248,7 @@ class FeatureVectorStore:
     def set_vector(self, id_: str, vector) -> None:
         v = np.asarray(vector, dtype=np.float32)
         with self._lock.write():
-            self._ensure(v.shape[0], len(self._ids) + 1)
+            self._ensure(v.shape[0], 1)
             row, was_new = self._row(id_)
             self._slab[row] = v
             self._recent.add(id_)
@@ -230,27 +268,30 @@ class FeatureVectorStore:
         if not ids:
             return
         with self._lock.write():
-            self._ensure(matrix.shape[1], len(self._ids) + len(ids))
-            if not self._ids and len(set(ids)) == len(ids):
+            # one copy into an empty store; otherwise each new id takes a
+            # row (growth by doubling counts only the ids not held yet)
+            whole = not self._ids and len(set(ids)) == len(ids)
+            self._ensure(matrix.shape[1], len(ids) if whole else 1)
+            if whole:
                 self._slab[: len(ids)] = matrix
                 self._ids = ids
                 self._index = {s: i for i, s in enumerate(ids)}
             else:
                 for i, id_ in enumerate(ids):
-                    self._slab[self._row(id_)[0]] = matrix[i]
+                    row = self._row(id_)[0]  # may grow the slab
+                    self._slab[row] = matrix[i]
             self._recent.update(ids)
             self._structural()
 
     def reserve(self, rows: int) -> None:
         """Presize for ``rows`` rows: a MODEL handoff knows its id count, and
-        presizing skips the doubling-growth copies."""
+        presizing skips the doubling-growth copies. It sizes the next
+        allocation only: a re-pack still shrinks to ``initial-rows``."""
         with self._lock.write():
             if self._slab is None:
                 self._reserve_rows = max(self._reserve_rows, rows)
             elif rows > self._slab.shape[0]:
-                grown = np.zeros((rows, self._slab.shape[1]), dtype=np.float32)
-                grown[: len(self._ids)] = self._slab[: len(self._ids)]
-                self._slab = grown
+                self._grow(rows)
 
     def remove_vector(self, id_: str) -> None:
         """Drop one id; the survivors re-pack into a fresh slab (removals

@@ -7,8 +7,8 @@ JAX) on the same aiohttp, held to it over HTTP by
   * :func:`make_app` configures only the hooks the port has (metrics,
     spans, resilience, faults, blackbox, the SLO engine, the tsdb sampler,
     lineage, the ``tcp:`` client defaults, the file broker's fsync policy,
-    profiling). The reference's compile cache has no torch counterpart;
-    its sanitizer and factor-arena sizing hooks are not ported (ROADMAP
+    profiling, the factor arena's sizing). The reference's compile cache
+    has no torch counterpart; its sanitizer hooks are not ported (ROADMAP
     Queue 1).
   * ``ServingLayer(config, device=None)`` serves a model on ``device``:
     None means the CUDA card. ``start()`` resolves it before it creates a
@@ -413,8 +413,12 @@ def make_app(config, manager, input_producer=None) -> web.Application:
     # tcp client knobs (oryx.broker.tcp.*) for any get_broker below
     netbroker.configure(config)
     tp.configure(config)  # file-broker fsync durability policy
-    # not ported: als_vectors.configure (the factor arena's sizing knobs)
-    # and sanitize.configure (tooling, ROADMAP Queue 1)
+    # factor-arena sizing (oryx.serving.arena.*): new vector stores built by
+    # model handoffs in this process pick the slab seed/compaction knobs up
+    from oryx_tpu_torch.models.als import vectors as als_vectors
+
+    als_vectors.configure(config)
+    # not ported: sanitize.configure (tooling, ROADMAP Queue 1)
     # roofline peaks + device-memory gauges + the profiler session config
     # (after the others; the device half wires once CUDA is initialised)
     profiling.configure(config)

@@ -170,9 +170,10 @@ async def trace(request: web.Request) -> web.Response:
     """JSON view of the span ring buffer (auth story identical to /metrics).
 
     ``?trace_id=<32hex>`` returns every buffered span of one trace (what
-    ``tools/trace_summary.py --trace-id`` renders as a tree); otherwise the
-    most recent ``?limit=`` spans (default 100) plus the kept-slowest spans
-    per route — the p99 outliers survive ring wrap by design."""
+    ``python -m oryx_tpu_torch.tools.trace_summary --trace-id`` renders as a
+    tree); otherwise the most recent ``?limit=`` spans (default 100) plus
+    the kept-slowest spans per route — the p99 outliers survive ring wrap
+    by design."""
     recorder = spans.default_recorder()
     trace_id = request.query.get("trace_id")
     if trace_id:
@@ -217,7 +218,9 @@ async def debug_profile(request: web.Request) -> web.Response:
     ``POST /debug/profile?seconds=N`` captures a ``torch.profiler`` trace
     for N seconds (refused past ``oryx.profiling.max-capture-sec``) and
     answers with the trace directory, which holds one Chrome trace
-    (``*.pt.trace.json``: Perfetto or ``chrome://tracing`` read it).
+    (``*.pt.trace.json``: ``python -m oryx_tpu_torch.tools.trace_summary``
+    prints its kernels by self time; Perfetto or ``chrome://tracing`` read
+    it too).
     Exactly ONE capture may be in flight per process: a concurrent request,
     or one arriving while another torch profiler runs in the process,
     answers 409 naming the current owner. The capture runs in a worker
@@ -255,8 +258,8 @@ async def debug_profile(request: web.Request) -> web.Response:
     return web.json_response({
         "trace_dir": trace_dir,
         "seconds": seconds,
-        "hint": f"open {trace_dir}/*.pt.trace.json in Perfetto or "
-                "chrome://tracing",
+        "hint": f"python -m oryx_tpu_torch.tools.trace_summary {trace_dir} "
+                f"(or open {trace_dir}/*.pt.trace.json in Perfetto)",
     })
 
 

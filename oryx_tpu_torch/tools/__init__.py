@@ -1,1 +1,2 @@
-"""Operator tools: the metrics-text readers the fleet console uses."""
+"""Operator tools: ``trace_summary`` (profiler traces, metrics dumps, span
+trees, series, bench history) and ``traffic`` (the load generator)."""

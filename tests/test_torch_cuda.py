@@ -1195,6 +1195,64 @@ assert any("gather_gramian_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
+def test_trace_summary_reads_both_als_kernels_of_a_profiled_half_iteration(
+        cuda_device, tmp_path):
+    """An item half-iteration profiled by ``torch.profiler`` in a fresh
+    process (one session per process: see ``profiler_gap.py``), its Chrome
+    trace exported and read by the port's ``trace_summary``: the
+    gather-Gramian's and the SPD solve's kernels are op rows, each counted
+    as often as its wrapper launched in the session, and the
+    ``record_function`` window is no op row."""
+    import os
+    import subprocess
+    import sys
+
+    code = f"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+from torch.profiler import ProfilerActivity, profile, record_function
+from oryx_tpu_torch.models.als import train as tr
+from oryx_tpu_torch.models.als.data import RatingBatch
+from oryx_tpu_torch.ops import kernels as K
+from oryx_tpu_torch.tools import trace_summary as ts
+rng = np.random.default_rng({SEED + 5})
+n_users, n_items, nnz, k = 3000, 200, 30_000, 16
+rows = np.sort(rng.integers(0, n_users, nnz)).astype(np.int32)
+cols = rng.integers(0, n_items, nnz).astype(np.int32)
+keep = np.unique(rows.astype(np.int64) * n_items + cols, return_index=True)[1]
+rows, cols = rows[np.sort(keep)], cols[np.sort(keep)]
+batch = RatingBatch(rows, cols, np.ones(len(rows), np.float32), range(n_users), range(n_items))
+_, items = tr.prepare_blocked(batch, k, device="cuda")
+x = torch.from_numpy(0.1 * rng.standard_normal((n_users, k)).astype(np.float32)).cuda()
+half = lambda: tr.solve_side_blocked(
+    x, items.srows, items.scols, items.svals, items.slens, 0.1, 1.0, block=items.block,
+    features=k, implicit=True, slot_chunk=items.slot_chunk, schedules=items.gg_schedules)
+half()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = dict(K.LAUNCHES)
+    with record_function("half"):
+        half()
+        torch.cuda.synchronize()
+    launched = {{w: K.LAUNCHES[w] - before[w] for w in before}}
+prof.export_chrome_trace({str(tmp_path / "half.pt.trace.json")!r})
+windows = []
+_, rows_ = ts.summarize({str(tmp_path)!r}, top=1 << 30, windows=windows)
+count = lambda part: sum(c for n, _, c in rows_ if part in n)
+print(json.dumps({{"launched": launched, "rows": rows_[:10], "windows": windows}}))
+assert launched["gather_gramian_accumulate"] == items.n_blocks
+assert count("gather_gramian_kernel") == launched["gather_gramian_accumulate"]
+assert count("spd_solve") == launched["spd_solve_batched"] == items.n_blocks
+assert "half" in [n for n, _, _ in windows] and "half" not in [n for n, _, _ in rows_]
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+
+
+@pytest.mark.cuda
 def test_staged_swap_on_the_card_promotes_and_answers_as_a_fresh_model(
         cuda_device, tmp_path):
     """Generation 1 (k = 8) live on the card, generation 2 (k = 12) staged

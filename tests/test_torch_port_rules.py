@@ -100,6 +100,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "serving/resources/classreg.py", "common/federation.py",
             "tools/trace_summary.py", "common/checkpoint.py",
             "common/profiling.py"} <= scanned
+    assert {"tools/traffic.py", "example/wordcount.py",
+            "example/resources.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):

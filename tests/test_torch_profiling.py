@@ -5,7 +5,8 @@ Mirrored through :func:`_mirror` (the reference test file's own bodies,
 rebound to the port's modules): the registry, window and unregistered-call
 cases, the device-perf view of a metrics dump, the session's busy refusal
 and overdue reclaim, the four ``StepTracer`` cases, capture directories,
-and three of the four ``POST /debug/profile`` cases (the port's app).
+three of the four ``POST /debug/profile`` cases (the port's app), and the
+five ``--history`` cases.
 
 Restated for the port:
 
@@ -23,8 +24,9 @@ Restated for the port:
 * the ``/debug/profile`` happy path reads the capture's Chrome trace;
 * the blackbox bundle's sections, with the memory section.
 
-Left for later: the five ``--history`` cases, which wait for the port of
-``tools/trace_summary.py``'s history view (ROADMAP Queue 1).
+The five ``trace_summary --history`` cases run on the port's tool the
+same way (its trajectory table and regression gate, over the reference's
+``tests/data/BENCH_hist_*.json`` fixtures).
 
 Then the cross-package checks: the port's half-iteration cost equals the
 reference's ``_register_half_cost`` on the same batch, block and dtype;
@@ -95,6 +97,11 @@ _CASES = [
     "test_debug_profile_concurrent_second_request_409",
     "test_debug_profile_validates_seconds",
     "test_debug_profile_auth_parity_with_metrics",
+    "test_history_renders_trajectory_and_passes_clean_rounds",
+    "test_history_flags_injected_regression_nonzero_exit",
+    "test_history_cli_entry_point",
+    "test_history_compares_same_backend_only",
+    "test_history_bare_batch_record_and_skips_unparseable",
 ]
 for _name in _CASES:
     globals()[_name] = _REF[_name]
@@ -392,6 +399,7 @@ def test_debug_profile_happy_path_writes_a_readable_chrome_trace(tmp_path):
                     if f.endswith(".pt.trace.json")]
         with open(os.path.join(trace_dir, trace)) as f:
             assert isinstance(json.load(f)["traceEvents"], list)
+        assert "trace_summary" in body["hint"]
         assert "pt.trace.json" in body["hint"]
     assert not profiling.profile_session().busy()
 

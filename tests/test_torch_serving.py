@@ -783,7 +783,9 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     120 items on the CPU: the replay, ``/recommend`` and every other read
     route against the loop's in-process model, ``/ingest`` through the speed
     layer into both managers, the load levels from a client process (the
-    coalescer batching at 64 connections), the probes and the close;
+    coalescer batching at 64 connections), the operator's tools (the
+    metrics view, a ``--trace-id`` tree, a second of the traffic
+    generator's ALS mix), the probes and the close;
     ``serving_quant_http`` (int8 with the IVF index, LSH and the smoke's
     rescorer) on the same loop; and ``kmeans_http`` on a small k-means
     model."""
@@ -803,6 +805,9 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     monkeypatch.setattr(cs, "HTTP_KMEANS_QUERIES", 50)
     monkeypatch.setattr(cs, "HTTP_KMEANS_ADDS", 10)
     monkeypatch.setattr(cs, "HTTP_QUANT_SIMILARITY", 10)
+    monkeypatch.setattr(cs, "TOOLS_TRAFFIC_S", 1.0)
+    monkeypatch.setattr(cs, "LOOP_USERS", 300)
+    monkeypatch.setattr(cs, "N_ITEMS", 120)
     rng = np.random.default_rng(11)
     u_f, i_f = rng.standard_normal((300, 2)), rng.standard_normal((120, 2))
     p = np.exp(u_f @ i_f.T)
@@ -832,6 +837,15 @@ def test_smoke_serving_http_phase_on_a_small_loop(tmp_path, monkeypatch):
     assert all(lv["errors"] == 0 for lv in out["load"])
     assert out["load"][-1]["mean_batch"] > 1
     assert out["threads_left"] == [] and not any(out["launches"].values())
+    tools = out["tools"]
+    assert {"oryx_device_mfu", "oryx_device_hbm_bandwidth_fraction"} <= set(
+        tools["metrics"]["gauges"])
+    assert tools["trace_id"]["spans"] >= 3
+    assert any("coalescer.device_call" in ln for ln in tools["trace_id"]["tree"])
+    t = tools["traffic"]
+    assert t["requests"] > 0 and t["server_errors"] == 0 and t["exceptions"] == 0
+    assert all(e["sent"] > 0 for e in t["endpoints"].values())
+    assert t["endpoints"]["pref"]["answered"] > 0 and t["pref_ups"] > 0
     assert quant["snapshot"]["type"] == "IVFSnapshot" and quant["snapshot"]["lsh_buckets"]
     assert quant["recommend_checked"]["users"] == 30
     assert quant["similarity_checked"] == 10 and set(quant["statuses"]) == {200}
