@@ -167,6 +167,32 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``kmeans_train`` at 1,000,000 × 64, k = 256, 8 iterations, one
            run, twice (the second timed): point-iters/s, seeding and sweep
            seconds apart;
+  mesh     the device mesh on the one card: meshes of four entries of
+           ``cuda:0`` (``make_mesh(devices=[cuda:0] * 4)``), each shard its
+           own tensors and its own kernel launches. ALS: the train's batch
+           and Y₀ (the same generator seed) through ``als_train(mesh=,
+           row_axis="model")``, the launch counters set to 0 just before
+           and read just after; each shard's block solves counted call by
+           call must launch both kernels once per block of its share per
+           iteration, the totals iterations × blocks; X and Y (row-sharded,
+           zero padding rows) within rtol 2e-4, atol 2e-5 of the one-device
+           train's; the first launch at each shape held against the plain
+           version. k-means: the data-parallel Lloyd step on the sweep's
+           1M × 64 points in 4 shards over ``data``, 8 iterations from the
+           same random centres as an unsharded ``_lloyd_run`` (9 sweep
+           launches a shard), each step in lockstep (both from the
+           unsharded run's centres) at 1e-4 / 1e-5 with equal counts, the
+           runs' cost within 1e-4 (their centres part after near ties:
+           reported); one sweep timed each way. Serving: a
+           1M × 50 seeded catalog sharded 4 ways beside the same store
+           unsharded, b256 top-10 plain and with each query's unsharded
+           top-3 excluded, without and with LSH at 0.3 (one hash): the
+           same ids (ties aside), scores within 1e-5, both timed. Config:
+           the default ``ComputeContext`` has the one device,
+           ``mesh-shape [2]`` raises the reference's ``ValueError``,
+           ``oryx.serving.compute.sharded`` serves unsharded with the log.
+           Bootstrap: a one-rank ``nccl`` group through
+           ``initialize_from_config``, one all-gather, torn down;
   rdf      the random decision forest, the launch counters set to 0
            first (no kernel may launch: the trainer is plain torch, as the
            reference's is plain jnp), on 581,012 planted covtype-shaped
@@ -200,8 +226,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``SpeedLayer`` with ``platform`` null (the card), and an
            ``ALSServingModelManager`` on the card consuming the update
            topic from ``earliest`` on a thread of its own (what the serving
-           app does). Batch half: the lines of the first 20,000 users
-           (``LOOP_USERS``, about 200,000, in order) are sent one by
+           app does). Batch half: the lines of the first 10,000 users
+           (``LOOP_USERS``, about 100,000, in order) are sent one by
            one through the input topic's producer (``produce_s``), offset 0
            is stored for the batch layer's group (a layer without a stored
            offset starts at its input's end), both layers start, and the
@@ -231,8 +257,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            layer's published ``UP``s, are the runtime's own, read from the
            metrics registry), and publish-to-servable seconds (the first ``MODEL`` on
            the update topic to the serving manager holding the stream).
-           Speed half: the held-out 10% (about 20,000 lines, the newest)
-           as two 10,000-line microbatches through the input topic. Before each,
+           Speed half: the held-out 10% (about 10,000 lines, the newest)
+           as two 5,000-line microbatches through the input topic. Before each,
            both managers apply every message on the update topic (the speed
            layer hears its own ``UP``s), the speed manager's solver caches
            are brought current (``settle_solvers``: ``SolverCache`` hands
@@ -410,7 +436,8 @@ phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
 batch process
 ``deployment``, read from its bundle's ``oryx_device_calls_total`` and
 equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too,
-and in the staged swap's generation 2 at k = 60 ``serving_swap``;
+in the staged swap's generation 2 at k = 60 ``serving_swap``, and in
+the mesh phase's sharded train and data-parallel Lloyd run ``mesh``;
 ``path_checks``:
 for each generation, one record per kernel and shape it launched at, that
 launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
@@ -431,6 +458,7 @@ import contextlib
 import http.client
 import io
 import json
+import logging
 import multiprocessing as mp
 import re
 import socket
@@ -484,6 +512,8 @@ from oryx_tpu_torch.models.schema import CategoricalValueEncodings, InputSchema
 from oryx_tpu_torch.ops import _build
 from oryx_tpu_torch.ops import kernels as K
 from oryx_tpu_torch.ops import vectormath
+from oryx_tpu_torch.parallel import distributed
+from oryx_tpu_torch.parallel.mesh import ComputeContext, make_mesh, shard_rows
 from oryx_tpu_torch.pmml import pmmlutils
 from oryx_tpu_torch.serving.app import ServingLayer
 from oryx_tpu_torch.tools import trace_summary
@@ -532,8 +562,10 @@ GENERATION_TIMESTAMP_MS = 1_760_000_000_000
 # candidate (λ = LAM), cut from a grid of two (λ 0.5 and 1: two took 109 s
 # of run_update on the H100, most of it the part-file write and the
 # evaluation's re-parse of each candidate), on the lines of the first
-# LOOP_USERS users (about 200,000, every item width kept): cut from all
-# 100,000 users because over tcp each published message is one RPC of
+# LOOP_USERS users (about 100,000, every item width kept): cut from all
+# 100,000 users, and since the mesh phase joined the smoke from 20,000
+# (the smoke took 1,130 s of its 1,200 on a slow host, the deployment 495
+# of them), because over tcp each published message is one RPC of
 # ~1.9 ms on the card's host, ~5 ms with four consumers (netbroker_rpc.py),
 # and a generation publishes one UP per user; the in-process loop runs the
 # same lines, so that both publish the same stream and launch the kernels
@@ -541,25 +573,25 @@ GENERATION_TIMESTAMP_MS = 1_760_000_000_000
 # SPEED_INTERVAL_S seconds: the speed interval is long enough that a
 # microbatch's append (~0.1 s in process) sent just after a tick lands in
 # one generation
-LOOP_USERS = 20_000
+LOOP_USERS = 10_000
 LOOP_BROKER = "memory:smoke"
 
 # the durability phase: the layout cache's extension holds out 1% of the
 # entries; the generation pair (two ALS run_updates with checkpoints on,
 # a generation and its crash-restart) runs on the lines of the first
-# DURABILITY_USERS users, cut to half the loop's so the pair's host work
-# (parse, evaluation, part files) stays near one loop generation's
+# DURABILITY_USERS users, the loop's, so the pair's host work (parse,
+# evaluation, part files) stays near one loop generation's
 DURABILITY_HOLDOUT = 0.01
 DURABILITY_USERS = 10_000
 DURABILITY_FP = "d" * 16
 BATCH_INTERVAL_S, SPEED_INTERVAL_S = 1.0, 2.0
 
-# the speed tier: the generation's held-out 10% (about 20,000 lines, the
-# newest) as two microbatches of 10,000 (cut with the loop's users from
+# the speed tier: the generation's held-out 10% (about 10,000 lines, the
+# newest) as two microbatches of 5,000 (cut with the loop's users from
 # two of 50,000, the size the reference's fold-in notes are written for,
 # oryx_tpu/models/als/speed.py:205-210); 256 sampled checks of each kind;
 # at the flagship width, rounds of 10,000 changed and 1,000 new rows
-SPEED_MICROBATCH, SPEED_SAMPLES = 10_000, 256
+SPEED_MICROBATCH, SPEED_SAMPLES = 5_000, 256
 FLAGSHIP_CHANGED, FLAGSHIP_NEW = 10_000, 1_000
 
 # the serving layer's HTTP app on the loop's update topic: 1,000 users'
@@ -584,7 +616,7 @@ IVF_RECALL_QUERIES, IVF_BURST_CHANGED, IVF_BURST_NEW = 32, 10_000, 1_000
 HTTP_QUANT_SIMILARITY = 100
 
 # the deployment: two serving replicas; a 2,500-line microbatch over tcp
-# (cut from the loop's 2 x 10,000: each send, and each of the ~2 UPs a
+# (cut from the loop's 2 x 5,000: each send, and each of the ~2 UPs a
 # line makes, is one RPC: 6-9 ms each on the card's host with the tiers
 # consuming, so 5,000 lines took 100 s), after up to 20 probe lines sent
 # one by one until the speed tier publishes
@@ -1048,8 +1080,13 @@ def device_profiles(windows: dict, during=None, export=None) -> dict:
     events, and no later session of the process recorded any; how many
     seconds differs from run to run (``profiler_gap.py``). A one-element
     fill runs first inside the session (the tracer has been seen to drop
-    the first kernel it would record) and is left out: a device event
-    counts in the last window opened before it started."""
+    the first kernel it would record) and is left out. A device event
+    counts in the window whose device-side span (the annotation's span on
+    the card's clock, from the kernels launched inside it) holds its start;
+    where the trace has no such span, in the last window opened on the host
+    before it started (the two clocks are aligned only roughly: a sweep's
+    first kernel has been seen to start on the card's clock before its
+    window opened on the host's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1087,6 +1124,9 @@ def device_profiles(windows: dict, during=None, export=None) -> dict:
     opened = sorted((e.time_range.start, int(e.name.split(":")[1]))
                     for e in events if e.name.startswith(WINDOW + ":")
                     and e.device_type != DeviceType.CUDA)
+    on_device = [(e.time_range.start, e.time_range.end, int(e.name.split(":")[1]))
+                 for e in events if e.name.startswith(WINDOW + ":")
+                 and e.device_type == DeviceType.CUDA]
     names = list(windows)
     spans: dict = {name: [] for name in names}
     for e in events:
@@ -1094,7 +1134,8 @@ def device_profiles(windows: dict, during=None, export=None) -> dict:
         if e.device_type != DeviceType.CUDA or e.name.startswith(WINDOW):
             continue
         start = e.time_range.start
-        inside = [i for t, i in opened if t <= start]
+        inside = ([i for a, b, i in on_device if a <= start <= b]
+                  or [i for t, i in opened if t <= start])
         if inside:
             spans[names[inside[-1]]].append(e)
     return {name: window_profile(spans[name], walls_us[name])
@@ -5368,6 +5409,304 @@ def kmeans_train_phase(points) -> dict:
     return out
 
 
+# -- the device mesh ----------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_BATCH = 256
+MESH_EXCLUDED = 3
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5  # the reference's mesh-training tolerance
+MESH_KM_RTOL, MESH_KM_ATOL = 1e-4, 1e-5  # and its data-parallel step's
+
+
+class CallLaunches:
+    """For the length of a ``with`` block, wraps ``module.name`` and keeps,
+    for each call in order, the kernel launches counted during it
+    (``K.LAUNCHES`` before and after; the phase launches from one thread)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls: list = []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            before = dict(K.LAUNCHES)
+            out = self.fn(*args, **kwargs)
+            self.calls.append({w: K.LAUNCHES[w] - before[w] for w in K.LAUNCHES})
+            return out
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> dict:
+    """How far ``got`` is from ``want`` against ``|got − want| <= atol +
+    rtol·|want|``: the largest difference and the largest excess over the
+    bound (<= 0 within it)."""
+    diff = (got - want).abs()
+    return {"max_abs_err": float(diff.max()),
+            "max_excess": float((diff - (atol + rtol * want.abs())).max())}
+
+
+def mesh_als(batch, x, y, train_s: float, mesh) -> tuple:
+    """The smoke's ALS train again, its rows sharded 4 ways over ``model``
+    (the same batch, Y₀ from the same generator seed), against the
+    one-device train's factors; each shard's launches of both kernels
+    counted per call of its block solve."""
+    timings: dict = {}
+    with FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                        (tr, "spd_solve_batched", spd_key)]) as first, \
+            CallLaunches(tr, "solve_side_blocked") as calls:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        xs, ys = tr.als_train(batch, FEATURES, LAM, ALPHA, True, ITERATIONS,
+                              generator=torch.Generator().manual_seed(SEED + 1),
+                              mesh=mesh, row_axis="model", timings=timings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {w: K.LAUNCHES[w] for w in ALS_WRAPPERS}
+        counted = dict(K.SHAPE_LAUNCHES)
+    n_users, n_items = len(batch.users), len(batch.items)
+    check(timings["shards"] == MESH_SHARDS and xs.n_shards == ys.n_shards == MESH_SHARDS,
+          f"mesh als: {xs.n_shards}/{ys.n_shards} shards, expected {MESH_SHARDS}")
+    check(xs.devices == ys.devices == mesh.axis_devices("model"),
+          f"mesh als: shards on {xs.devices} / {ys.devices}, not the mesh's")
+    # the calls go half by half (user, item), shard 0 .. 3 within each
+    blocks = timings["blocks"]
+    per_shard = {side: [{w: 0 for w in ALS_WRAPPERS} for _ in range(MESH_SHARDS)]
+                 for side in ("user", "item")}
+    check(len(calls.calls) == 2 * ITERATIONS * MESH_SHARDS,
+          f"mesh als: {len(calls.calls)} shard solves, expected "
+          f"{2 * ITERATIONS * MESH_SHARDS}")
+    for i, call in enumerate(calls.calls):
+        side = ("user", "item")[(i // MESH_SHARDS) % 2]
+        for w in ALS_WRAPPERS:
+            per_shard[side][i % MESH_SHARDS][w] += call[w]
+        check(call["kmeans_assign_accumulate"] == 0, "mesh als: a sweep launched")
+    for side in ("user", "item"):
+        want = blocks[side] // MESH_SHARDS * ITERATIONS
+        for s, got in enumerate(per_shard[side]):
+            check(all(got[w] == want for w in ALS_WRAPPERS),
+                  f"mesh als: {side} shard {s} launched {got}, expected {want} "
+                  f"of each ({blocks[side] // MESH_SHARDS} blocks x {ITERATIONS})")
+    expected = ITERATIONS * (blocks["user"] + blocks["item"])
+    check(all(launches[w] == expected for w in ALS_WRAPPERS),
+          f"mesh als: {launches} launches, expected {expected} of each")
+    xf, yf = xs.full(), ys.full()
+    check(not xf[n_users:].any() and not yf[n_items:].any(),
+          "mesh als: a padding row is not zero")
+    errs = {"x": excess(xf[:n_users], x, MESH_RTOL, MESH_ATOL),
+            "y": excess(yf[:n_items], y, MESH_RTOL, MESH_ATOL)}
+    for side, e in errs.items():
+        check(e["max_excess"] <= 0.0, f"mesh als: sharded {side} off the "
+              f"one-device train beyond rtol {MESH_RTOL}, atol {MESH_ATOL}: {e}")
+    held = hold_path_launches(first, counted, "mesh.als")
+    return {"seconds": seconds, "unsharded_seconds": train_s,
+            "iter_s": timings["iter_s"], "pack_s": timings["pack_s"],
+            "shards": MESH_SHARDS, "blocks": blocks,
+            "padded_rows": {"user": xs.shape[0], "item": ys.shape[0]},
+            "launches": launches, "shard_launches": per_shard,
+            "shape_launches": {launch_key(*key): n for key, n in counted.items()},
+            "vs_unsharded": errs, "rtol": MESH_RTOL, "atol": MESH_ATOL}, held
+
+
+def mesh_kmeans(points, mesh) -> tuple:
+    """The data-parallel Lloyd step on the kmeans phases' 1M × 64 points in
+    4 shards over ``data``, from the same random centres as the unsharded
+    ``_lloyd_run``, 8 iterations. Each of the 9 steps is held in lockstep
+    (both from the unsharded run's centres at that step): the same
+    nearest centres (equal counts), the next centres within 1e-4 / 1e-5,
+    the cost within 1e-4. The two runs themselves are held by their cost
+    (1e-4) and their centres and assignments reported: a rounding of the
+    sums moves a few of the standard-normal points that lie within a
+    rounding of two centres, and 8 iterations carry that on."""
+    dev = points.device
+    n = points.shape[0]
+    weights = torch.ones(n, device=dev)
+    c0 = kmtrain._init_random(torch.Generator(device=dev).manual_seed(SEED + 53),
+                              points, KM_K)
+    c1, n1, cost1 = kmtrain._lloyd_run(points, weights, c0, KM_ITERATIONS)
+    sp = shard_rows(points, mesh, "data")
+    sw = shard_rows(weights, mesh, "data")
+    check(sp.rows_per_shard * MESH_SHARDS == n, "mesh kmeans: the points did not split evenly")
+    per_shard = [0] * MESH_SHARDS
+    with FirstLaunches([(K, "kmeans_assign_accumulate", sweep_key)]) as first, \
+            CallLaunches(K, "kmeans_assign_accumulate") as calls:
+        K.reset_launches()
+        c2, n2, cost2 = kmtrain._lloyd_run(sp, sw, c0, KM_ITERATIONS)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES["kmeans_assign_accumulate"]
+        counted = dict(K.SHAPE_LAUNCHES)
+    # each call of the wrapper is one shard's sweep, shards in order
+    for i, call in enumerate(calls.calls):
+        per_shard[i % MESH_SHARDS] += call["kmeans_assign_accumulate"]
+    want = KM_ITERATIONS + 1
+    check(per_shard == [want] * MESH_SHARDS and launches == want * MESH_SHARDS,
+          f"mesh kmeans: shard launches {per_shard}, total {launches}, "
+          f"expected {want} a shard")
+    held = hold_path_launches(first, counted, "mesh.kmeans")
+    # lockstep: the sharded step from each of the unsharded run's centres
+    lockstep = []
+    c = c0
+    for i in range(KM_ITERATIONS + 1):
+        s1, k1, e1 = K.kmeans_assign_accumulate(points, weights, c)
+        s2, k2, e2 = kmtrain._sweep_sharded(sp, sw, c)
+        nxt1 = torch.where((k1 > 0)[:, None], s1 / k1.clamp_min(1.0)[:, None], c)
+        nxt2 = torch.where((k2 > 0)[:, None], s2 / k2.clamp_min(1.0)[:, None], c)
+        step = {"centres": excess(nxt2, nxt1, MESH_KM_RTOL, MESH_KM_ATOL),
+                "counts_equal": bool(torch.equal(k1, k2)),
+                "cost_rel": abs(float(e2) - float(e1)) / float(e1)}
+        check(step["centres"]["max_excess"] <= 0.0 and step["counts_equal"]
+              and step["cost_rel"] <= MESH_KM_RTOL,
+              f"mesh kmeans: step {i} off the unsharded step: {step}")
+        lockstep.append(step)
+        c = nxt1
+    cost_rel = abs(float(cost2) - float(cost1)) / float(cost1)
+    check(cost_rel <= MESH_KM_RTOL, f"mesh kmeans: cost {float(cost2)} vs "
+          f"{float(cost1)} unsharded, rel {cost_rel} > {MESH_KM_RTOL}")
+    run = {"centres": excess(c2, c1, MESH_KM_RTOL, MESH_KM_ATOL),
+           "counts_max_abs_diff": float((n2 - n1).abs().max()),
+           "cost_rel": cost_rel,
+           "assignments_differ": int((torch.cdist(points, c2).argmin(1)
+                                      != torch.cdist(points, c1).argmin(1)).sum())}
+    step_ms = time_ms(lambda: K.kmeans_assign_accumulate(points, weights, c0))
+    sharded_ms = time_ms(lambda: kmtrain._sweep_sharded(sp, sw, c0))
+    return {"n": n, "d": points.shape[1], "k": KM_K, "iterations": KM_ITERATIONS,
+            "shards": MESH_SHARDS, "launches": launches, "shard_launches": per_shard,
+            "shape_launches": {launch_key(*key): v for key, v in counted.items()},
+            "vs_unsharded": run, "lockstep": lockstep, "step_ms": sharded_ms,
+            "unsharded_step_ms": step_ms, "rtol": MESH_KM_RTOL,
+            "atol": MESH_KM_ATOL}, held
+
+
+def mesh_serving(mesh, rng) -> dict:
+    """A 1M × 50 seeded catalog served sharded 4 ways over ``model`` beside
+    the same store unsharded: b256 top-10 plain, with each query's
+    unsharded top-3 excluded, and with LSH at 0.3 (the same hash on both);
+    equal ids, scores within 1e-5 relative; both timed."""
+    dev = mesh.devices.flat[0]
+    y = rng.standard_normal((FLAGSHIP_ITEMS, FEATURES), dtype=np.float32)
+    ids = [f"i{j}" for j in range(FLAGSHIP_ITEMS)]
+    qs = rng.standard_normal((MESH_BATCH, FEATURES), dtype=np.float32)
+    out: dict = {"items": FLAGSHIP_ITEMS, "features": FEATURES,
+                 "batch": MESH_BATCH, "shards": MESH_SHARDS}
+    for label, rate in (("plain", 1.0), ("lsh_0.3", QUANT_LSH_RATE)):
+        single = ALSServingModel(FEATURES, True, rate, device=dev)
+        sharded = ALSServingModel(FEATURES, True, rate, device=dev, mesh=mesh)
+        single.bulk_load_items(ids, y)
+        sharded.y, sharded.lsh = single.y, single.lsh  # one store, one hash
+        snap = sharded.y_snapshot()
+        check(snap.sharded_mat is not None and snap.sharded_mat.n_shards == MESH_SHARDS,
+              f"mesh serving {label}: not sharded")
+        base = single.top_n_batch(qs, 10)
+        excluded = [{i for i, _ in r[:MESH_EXCLUDED]} for r in base]
+        rec: dict = {}
+        for case, kw in (("top10", {}), ("excluded", {"excluded": excluded})):
+            want = single.top_n_batch(qs, 10, **kw)
+            got = sharded.top_n_batch(qs, 10, **kw)
+            for b, (g, w) in enumerate(zip(got, want)):
+                check_same_top_n([{"id": i, "value": v} for i, v in g], w,
+                                 f"mesh serving {label} {case} query {b}")
+            check(all(len(r) == 10 for r in got), f"mesh serving {label}: short list")
+            if kw:
+                check(all(not ({i for i, _ in r} & e) for r, e in zip(got, excluded)),
+                      f"mesh serving {label}: an excluded item came back")
+            times = {}
+            for name, m in (("sharded", sharded), ("unsharded", single)):
+                t = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    m.top_n_batch(qs, 10, **kw)
+                    t.append(time.perf_counter() - t0)
+                times[name] = float(np.median(t)) * 1e3
+            rec[case] = {"ms": times["sharded"], "unsharded_ms": times["unsharded"]}
+        out[label] = rec
+        del single, sharded, snap
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_config(dev) -> dict:
+    """The config side on one card: the default context has one device;
+    ``mesh-shape [2]`` raises the reference's ``ValueError``; a manager
+    asked to shard serves unsharded, with the log."""
+    ctx = ComputeContext(oryx_config.get_default(), "batch")
+    check(ctx.num_devices == torch.cuda.device_count() == 1
+          and ctx.device.type == "cuda", f"mesh config: {ctx.mesh}")
+    try:
+        ComputeContext(oryx_config.get_default().with_values(
+            {"oryx.batch.streaming.config.mesh-shape": [2]}), "batch")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "needs 2 devices, have 1" in refused,
+          f"mesh config: mesh-shape [2] gave {refused!r}")
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    serving_log = logging.getLogger(serving_mod.__name__)
+    serving_log.addHandler(handler)
+    level = serving_log.level
+    serving_log.setLevel(logging.INFO)
+    try:
+        manager = ALSServingModelManager(oryx_config.get_default().with_values(
+            {"oryx.serving.compute.sharded": True}))
+    finally:
+        serving_log.removeHandler(handler)
+        serving_log.setLevel(level)
+    logged = [r.getMessage() for r in records]
+    check(manager.mesh is None and "sharded serving requested but only one device" in logged,
+          f"mesh config: sharded manager mesh {manager.mesh}, log {logged}")
+    return {"context_devices": ctx.num_devices, "context_mesh": ctx.mesh.shape,
+            "mesh_shape_2": refused, "sharded_manager_log": logged}
+
+
+def mesh_bootstrap(dev) -> dict:
+    """A one-rank ``nccl`` group through ``initialize_from_config``, one
+    all-gather, then torn down."""
+    conf = oryx_config.get_default().with_values({
+        "oryx.distributed.coordinator": f"127.0.0.1:{ioutils.choose_free_port()}",
+        "oryx.distributed.num-processes": 1, "oryx.distributed.process-id": 0})
+    t0 = time.perf_counter()
+    try:
+        check(distributed.initialize_from_config(conf) is True
+              and distributed.is_initialized(), "mesh bootstrap: no group")
+        backend = torch.distributed.get_backend()
+        parts = [torch.zeros(2, device=dev)]
+        torch.distributed.all_gather(parts, torch.tensor([1.0, 2.0], device=dev))
+        torch.cuda.synchronize()
+        gathered = parts[0].tolist()
+    finally:
+        distributed.shutdown()
+    check(backend == "nccl" and gathered == [1.0, 2.0]
+          and not distributed.is_initialized(),
+          f"mesh bootstrap: backend {backend}, gathered {gathered}")
+    return {"backend": backend, "world_size": 1, "all_gather": gathered,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_phase(batch, x, y, train_s: float, km_points, rng) -> dict:
+    """The device mesh on one card: four mesh entries of ``cuda:0``, each
+    shard its own tensors and its own kernel launches."""
+    dev = x.device
+    t0 = time.perf_counter()
+    model_mesh = make_mesh(axes=("model",), devices=[dev] * MESH_SHARDS)
+    data_mesh = make_mesh(axes=("data",), devices=[dev] * MESH_SHARDS)
+    als, als_held = mesh_als(batch, x, y, train_s, model_mesh)
+    torch.cuda.empty_cache()
+    km, km_held = mesh_kmeans(km_points, data_mesh)
+    torch.cuda.empty_cache()
+    out = {"als": als, "kmeans": km, "serving": mesh_serving(model_mesh, rng),
+           "config": mesh_config(dev), "bootstrap": mesh_bootstrap(dev),
+           "held_against_plain": als_held + km_held}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- the random decision forest ---------------------------------------------
 
 # Oryx's RDF example schema is "covtype-style"
@@ -5949,8 +6288,8 @@ def main() -> int:
                                       np.random.default_rng(SEED + 29))
     emit("als_durability", **durability, gpu=smi, reduced={
         "generation": f"the lines of the first {DURABILITY_USERS} of "
-                      f"{N_USERS} users ({len(durability_lines)} lines), half "
-                      f"the loop's {LOOP_USERS}: two run_updates",
+                      f"{N_USERS} users ({len(durability_lines)} lines), the "
+                      f"loop's {LOOP_USERS}: two run_updates",
         "iterations": f"{ITERATIONS}, the smoke's"})
 
     flagship, flagship_served, flagship_y, flagship_ids = serve_flagship(rng)
@@ -6009,6 +6348,16 @@ def main() -> int:
     emit("kmeans_update", **km_update)
     km_train = kmeans_train_phase(km_points)
     emit("kmeans_train", **km_train)
+    # the device mesh: the train's batch and Y₀ and the sweep's points,
+    # sharded 4 ways over four mesh entries of the one card
+    mesh = mesh_phase(batch, x, y, train_s, km_points,
+                      np.random.default_rng(SEED + 59))
+    mesh_held = mesh.pop("held_against_plain")
+    emit("mesh", **mesh, gpu=smi, reduced={
+        "cards": f"{MESH_SHARDS} mesh entries of the one card: each shard its "
+                 "own tensors and launches, the merges as across cards",
+        "serving": f"a 1,000,000 x {FEATURES} seeded catalog, the flagship's "
+                   f"shape, at batch {MESH_BATCH}"})
     rdf = rdf_phase(rdf_data, dev, np.random.default_rng(SEED + 23))
     del rdf_data
     emit("rdf", **rdf, data_s=rdf_data_s, profile=profiles["rdf_tree"], gpu=smi,
@@ -6098,6 +6447,10 @@ def main() -> int:
         "als_durability": durability["launches"],
         # generation 2 of the staged swap at k = 60 (the layers launch none)
         "serving_swap": serving_swap["launches"],
+        # the sharded ALS train and the data-parallel Lloyd run, per shard
+        # in the mesh line
+        "mesh": {**mesh["als"]["launches"],
+                 "kmeans_assign_accumulate": mesh["kmeans"]["launches"]},
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too
@@ -6114,6 +6467,7 @@ def main() -> int:
         "kmeans_generation": km_update["generation"]["held_against_plain"],
         "als_durability": durability["held_against_plain"],
         "serving_swap": serving_swap["gen2"]["held_against_plain"],
+        "mesh": mesh_held,
     }
     print(json.dumps({"kernels": entries, "paths": paths,
                       "path_checks": path_checks, "gpu": smi,

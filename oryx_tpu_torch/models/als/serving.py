@@ -71,8 +71,19 @@ table when LSH masks the scan. The int8 path's exact rescore runs on the
 host and is not device work. ``warm_bucket`` runs each program once on a
 zero batch.
 
-Not ported yet: sharded serving; the manager raises at construction when
-it is configured.
+Sharded serving (the reference's multi-device scan): with a ``mesh`` the
+snapshot also holds the scoring copy row-sharded over ``shard_axis``
+(:class:`~oryx_tpu_torch.parallel.mesh.ShardedRows`, rows padded to the
+shard count) and the LSH buckets sharded the same way. A batch is scored
+shard by shard, each on its device: the pad rows, the queries' LSH
+candidate table and their excluded rows (global indices rebased to the
+shard) are masked, a local top-k is taken, and the (B, shards·k)
+candidates merge, in shard order, with one more top-k. Host-callable
+filters fall back to the unsharded scan; point updates reach the sharded
+copy with the next snapshot; int8 with a mesh degrades to bfloat16 with
+the reference's warning. The manager reads ``oryx.serving.compute.
+sharded`` and shards over every local device when there is more than one;
+with one it logs and serves unsharded, as the reference does.
 """
 
 from __future__ import annotations
@@ -100,6 +111,13 @@ from oryx_tpu_torch.models.als.lsh import LocalitySensitiveHash
 from oryx_tpu_torch.models.als.rescorer import load_rescorer_providers
 from oryx_tpu_torch.models.als.vectors import FeatureVectorStore, SnapshotIndex
 from oryx_tpu_torch.ops.solver import SolverCache
+from oryx_tpu_torch.parallel.mesh import (
+    Mesh,
+    local_devices,
+    make_mesh,
+    replicated,
+    shard_rows,
+)
 
 log = logging.getLogger(__name__)
 
@@ -318,7 +336,8 @@ class _YSnapshot(SnapshotIndex):
                  prev: "_YSnapshot | None" = None,
                  delta: "tuple[np.ndarray, int] | None" = None,
                  lsh: "LocalitySensitiveHash | None" = None,
-                 device_dtype: str = "auto"):
+                 device_dtype: str = "auto", mesh: "Mesh | None" = None,
+                 shard_axis: str = "model"):
         self.ids = ids
         self.mat = mat  # (n, k) float32 on the serving device, or None
         self.n = 0 if mat is None else mat.shape[0]
@@ -326,6 +345,9 @@ class _YSnapshot(SnapshotIndex):
         self._index_ids(prev if incremental else None)
         _carry_cost_keys(self, prev if incremental else None)
         self.norms = self.score_mat = self.buckets = None
+        # with a mesh: the scoring copy and the buckets row-sharded over
+        # shard_axis (zero buckets without LSH, so every shard has some)
+        self.sharded_mat = self.sharded_buckets = None
         if mat is None:
             return
         self.norms = torch.linalg.vector_norm(mat, dim=1)
@@ -349,12 +371,24 @@ class _YSnapshot(SnapshotIndex):
             else:
                 self.buckets = torch.as_tensor(
                     lsh.assign_buckets(mat.cpu().numpy()), device=dev)
+        if mesh is not None:
+            self.sharded_mat = shard_rows(self.score_mat, mesh, shard_axis)
+            buckets = (self.buckets if self.buckets is not None else
+                       torch.zeros(self.n, dtype=torch.int64, device=mat.device))
+            self.sharded_buckets = shard_rows(buckets, mesh, shard_axis)
 
     def device_nbytes(self) -> int:
-        arrays = (self.mat,
-                  self.score_mat if self.score_mat is not self.mat else None,
-                  self.norms, self.buckets)
-        return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+        arrays = [a for a in (self.mat,
+                              self.score_mat if self.score_mat is not self.mat else None,
+                              self.norms, self.buckets) if a is not None]
+        # a shard on the scoring copy's own device is a view of it: counted
+        # once; a padded or moved shard holds bytes of its own
+        held = {a.untyped_storage().data_ptr() for a in arrays}
+        for sharded in (self.sharded_mat, self.sharded_buckets):
+            if sharded is not None:
+                arrays.extend(t for t in sharded.shards
+                              if t.untyped_storage().data_ptr() not in held)
+        return sum(a.numel() * a.element_size() for a in arrays)
 
 
 #: Host-side quantization chunk: bounds the transient float32 work while
@@ -486,11 +520,19 @@ class ALSServingModel(ServingModel):
     def __init__(self, features: int, implicit: bool, sample_rate: float = 1.0,
                  device_dtype: str = "auto", rescore_factor: float = 4.0,
                  index_enabled: bool = False, index_cells: int = 0,
-                 index_probes: int = 8, index_skew: float = 4.0, device=None):
+                 index_probes: int = 8, index_skew: float = 4.0, device=None,
+                 mesh: "Mesh | None" = None, shard_axis: str = "model"):
         if device_dtype not in _DEVICE_DTYPES:
             raise ValueError(
                 f"oryx.serving.device-dtype must be one of {_DEVICE_DTYPES}, "
                 f"not {device_dtype!r}")
+        if device_dtype == "int8" and mesh is not None:
+            # the sharded scan scores float32 / bfloat16 rows; degrade
+            # loudly, never silently
+            log.warning(
+                "device-dtype=int8 is not supported with sharded serving; "
+                "using bfloat16 for the sharded scoring copy")
+            device_dtype = "bfloat16"
         if index_enabled and device_dtype != "int8":
             # the IVF cells ARE the int8 representation, and the rescore
             # rides the int8 mode's pinned slab view
@@ -508,6 +550,8 @@ class ALSServingModel(ServingModel):
         self.index_probes = max(1, int(index_probes))
         self.index_skew = max(1.0, float(index_skew))
         self.device = resolve(device)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.x = FeatureVectorStore()
         self.y = FeatureVectorStore()
         self.lsh = (LocalitySensitiveHash(sample_rate, features)
@@ -626,7 +670,8 @@ class ALSServingModel(ServingModel):
                     delta = self.y.delta_since(snap.mat, mat)
                 self._snapshot = _YSnapshot(
                     ids, mat, prev=snap if delta is not None else None,
-                    delta=delta, lsh=self.lsh, device_dtype=self.device_dtype)
+                    delta=delta, lsh=self.lsh, device_dtype=self.device_dtype,
+                    mesh=self.mesh, shard_axis=self.shard_axis)
             return self._snapshot
 
     def _quant_snapshot(self) -> _QuantSnapshot:
@@ -756,6 +801,44 @@ class ALSServingModel(ServingModel):
         lut[self.lsh.get_candidate_indices(query_vec)] = True
         return torch.as_tensor(lut, device=self.device)[snap.buckets]
 
+    def _sharded_query(self, snap: _YSnapshot, qs_host: np.ndarray,
+                       want: int, excluded):
+        """The multi-shard scan (the reference's ``_sharded_top_k_fn``):
+        each shard scores its rows on its device and masks its pad rows,
+        the queries' LSH candidates and their excluded rows (global
+        indices rebased to the shard), then takes a local top-k; the (B,
+        shards·k) candidates merge, in shard order, with one more top-k.
+        Returns host (vals, idx) of width ``k_final``, idx global rows."""
+        mats, buckets = snap.sharded_mat, snap.sharded_buckets
+        n_local = mats.rows_per_shard
+        want = min(want, snap.n)
+        k = min(n_local, _round_up_pow2(max(want, 16)))
+        k_final = min(mats.n_shards * k, _round_up_pow2(max(want, 16)))
+        qs = torch.as_tensor(qs_host, device=self.device)
+        lut = (self._build_lut(qs_host)
+               if self.lsh is not None and snap.buckets is not None else None)
+        excl = self._excl_tensor(snap, excluded, len(qs_host))
+        devs = mats.devices
+        lut_d = replicated(lut, devs) if lut is not None else [None] * len(devs)
+        excl_d = replicated(excl, devs) if excl is not None else [None] * len(devs)
+        vals, idx = [], []
+        for s, (mat, bkt, q, lu, ex) in enumerate(zip(
+                mats.shards, buckets.shards, replicated(qs, devs), lut_d,
+                excl_d)):
+            offset = s * n_local
+            scores = _score(q, mat)
+            scores[:, max(0, min(n_local, snap.n - offset)):] = -math.inf
+            if lu is not None:
+                scores.masked_fill_(~lu[:, bkt], -math.inf)
+            if ex is not None:
+                scores = _mask_excluded(scores, ex - offset)
+            v, i = torch.topk(scores, k, dim=1)
+            vals.append(v.to(self.device))
+            idx.append(i.to(self.device) + offset)
+        mvals, pos = torch.topk(torch.cat(vals, dim=1), k_final, dim=1)
+        return (mvals.cpu().numpy(),
+                torch.cat(idx, dim=1).gather(1, pos).cpu().numpy())
+
     def top_n(
         self,
         query_vec,
@@ -779,6 +862,15 @@ class ALSServingModel(ServingModel):
             return self._quant_top_n(snap, q_host, how_many, offset, allowed,
                                      rescore, excluded)
         want = how_many + offset
+        if snap.sharded_mat is not None:
+            k = want if allowed is None and rescore is None else max(4 * want, 64)
+            while True:
+                vals, idx = self._sharded_query(
+                    snap, q_host[None, :], k, [excluded] if excluded else None)
+                out = self._collect(snap, vals[0], idx[0], want, allowed, rescore)
+                if len(out) >= want or k >= snap.n:
+                    return out[offset:offset + how_many]
+                k = min(snap.n, k * 2)  # widen: host filter consumed candidates
         q = torch.as_tensor(q_host, device=self.device)
         valid = self._candidate_mask(snap, q_host)
         excl = self._excl_tensor(snap, [excluded], 1)
@@ -837,6 +929,13 @@ class ALSServingModel(ServingModel):
         if isinstance(snap, _QuantSnapshot):
             return self._quant_top_n_batch(snap, qs_host, how_many, alloweds,
                                            excluded, filtering)
+        if snap.sharded_mat is not None and not filtering:
+            # the sharded scan: its calls are counted, but no per-call cost
+            # is registered for it, as in the reference
+            profiling.costs().record(f"als.top_n_batch/b{n_q}+sharded")
+            vals, idx = self._sharded_query(snap, qs_host, how_many, excluded)
+            return self._batch_results(snap, qs_host, vals, idx, 0, how_many,
+                                       alloweds, excluded, False, self.top_n)
         excl = self._excl_tensor(snap, excluded, n_q)
         qs = torch.as_tensor(qs_host, device=self.device)
         cost_key = _topn_cost_key(n_q, excl is not None)
@@ -1059,11 +1158,16 @@ class ALSServingModelManager(AbstractServingModelManager):
         self.index_cells = config.get_int("oryx.serving.index.cells", 0)
         self.index_probes = config.get_int("oryx.serving.index.probes", 8)
         self.index_skew = config.get_float("oryx.serving.index.rebalance-skew", 4.0)
-        if config.get_bool("oryx.serving.compute.sharded", False):
-            raise NotImplementedError(
-                "oryx.serving.compute.sharded: sharded serving is not ported yet")
         self.rescorer_provider = load_rescorer_providers(config)
         self.device = resolve(device)
+        self.mesh: "Mesh | None" = None
+        if config.get_bool("oryx.serving.compute.sharded", False):
+            devices = local_devices(self.device.type)
+            if len(devices) > 1:
+                self.mesh = make_mesh(axes=("model",), devices=devices)
+                log.info("serving Y sharded over %d devices", self.mesh.size)
+            else:
+                log.info("sharded serving requested but only one device")
         # the YᵀY pre-trigger's rate limit (ALSServingModelManager.java:95-105)
         self._solver_trigger_rate = RateLimitCheck(5)
         self.model: "ALSServingModel | None" = None
@@ -1158,6 +1262,7 @@ class ALSServingModelManager(AbstractServingModelManager):
                     index_cells=self.index_cells,
                     index_probes=self.index_probes,
                     index_skew=self.index_skew, device=self.device,
+                    mesh=self.mesh,
                 )
                 # the handoff meta names every expected row: presize the
                 # stores so the fill skips doubling-growth copies

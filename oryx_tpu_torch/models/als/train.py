@@ -1,6 +1,6 @@
-"""ALS training on one CUDA card: slot-padded block normal equations.
+"""ALS training on the card: slot-padded block normal equations.
 
-The port of the reference's ``models/als/train.py`` (single device):
+The port of the reference's ``models/als/train.py``:
 
   * implicit feedback à la Hu/Koren/Volinsky (confidence c = 1 + α·|r|,
     preference p = 1 if r > 0 else 0) or explicit ALS-WR, with λ·n_u
@@ -29,9 +29,17 @@ records one call of ``als.train.user_half`` / ``als.train.item_half`` into
 the device cost accounting (:mod:`oryx_tpu_torch.common.profiling`), at the
 analytic cost of :func:`half_cost`, as the reference does.
 
+With ``mesh`` and ``row_axis`` (the reference's ``shard_map`` half-
+iteration, ``_sharded_solver``) the row blocks split evenly over the mesh
+axis: at each half-iteration the opposite factor is gathered and copied to
+every shard's device (the reference's replicated operand, about N·k·4
+bytes a shard a half), and each shard solves its own blocks on its device,
+so each shard launches the gather-Gramian and SPD kernels for its blocks.
+The factors come back as :class:`~oryx_tpu_torch.parallel.mesh.
+ShardedRows`, padded to the block boundary with zero rows.
+
 Float32 products on the card run in full float32, never TF32
-(:func:`oryx_tpu_torch.common.device.resolve`). Mesh training is not
-ported yet.
+(:func:`oryx_tpu_torch.common.device.resolve`).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import logging
 import math
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -59,6 +67,7 @@ from oryx_tpu_torch.ops.kernels import (
     spd_solve_batched,
     spd_solve_cholesky,
 )
+from oryx_tpu_torch.parallel.mesh import ShardedRows, replicated, shard_rows
 
 log = logging.getLogger(__name__)
 
@@ -679,6 +688,50 @@ def solve_side_blocked(y, srows, scols, svals, slens, lam, alpha, *, block,
     return torch.cat(out).reshape(-1, features)
 
 
+def shard_side(side: _BlockedSide, devices) -> list:
+    """``side``'s row blocks split evenly over ``devices``: one
+    ``(srows, scols, svals, slens, schedules)`` per shard, on its device.
+    The block count must be a multiple of the shard count (the pack's
+    ``n_block_multiple``)."""
+    per = side.n_blocks // len(devices)
+    if per * len(devices) != side.n_blocks:
+        raise ValueError(f"{side.n_blocks} blocks do not split over "
+                         f"{len(devices)} shards")
+    out = []
+    for s, d in enumerate(devices):
+        lo, hi = s * per, (s + 1) * per
+        slabs = tuple(a[lo:hi].to(d) for a in (side.srows, side.scols,
+                                                 side.svals, side.slens))
+        schedules = [replace(sc, work=sc.work.to(d), split=sc.split.to(d))
+                     for sc in side.gg_schedules[lo:hi]]
+        out.append((*slabs, schedules))
+    return out
+
+
+def solve_side_sharded(y, shards, devices, axis: str, lam, alpha, *, block,
+                       features, implicit, slot_chunk, dtype="float32",
+                       spd_kernel: "bool | None" = None,
+                       fused_gramian: "bool | None" = None) -> ShardedRows:
+    """One half-iteration over a mesh axis (the reference's
+    ``_sharded_solver``): ``y`` (a tensor or :class:`ShardedRows`) is
+    gathered and copied to every shard's device, then each shard of
+    :func:`shard_side` solves its blocks there with
+    :func:`solve_side_blocked`. Returns this side's factors row-sharded
+    over ``axis``, shard ``i`` on ``devices[i]``."""
+    full = y.full() if isinstance(y, ShardedRows) else y
+    out = [
+        solve_side_blocked(
+            y_d, srows, scols, svals, slens, lam, alpha, block=block,
+            features=features, implicit=implicit, slot_chunk=slot_chunk,
+            schedules=schedules, dtype=dtype, spd_kernel=spd_kernel,
+            fused_gramian=fused_gramian,
+        )
+        for y_d, (srows, scols, svals, slens, schedules)
+        in zip(replicated(full, devices), shards)
+    ]
+    return ShardedRows(out, axis)
+
+
 def _even_block(n_rows: int, features: int, ndev: int,
                 block: "int | None") -> int:
     """Divide rows EVENLY across the block count the budget implies."""
@@ -775,6 +828,22 @@ def init_item_factors(padded_rows: int, n_items: int, features: int,
     return y
 
 
+def _exact(factors, n_rows: int) -> torch.Tensor:
+    """The first ``n_rows`` rows of a factor tensor or :class:`ShardedRows`."""
+    if isinstance(factors, ShardedRows):
+        factors = factors.full()
+    return factors[:n_rows]
+
+
+def _padded_shards(factors: torch.Tensor, padded_rows: int, mesh,
+                   axis: str) -> ShardedRows:
+    """``factors`` zero-padded to ``padded_rows`` rows (a multiple of the
+    shard count) and row-sharded over ``mesh``'s ``axis``."""
+    out = factors.new_zeros((padded_rows, factors.shape[1]))
+    out[:factors.shape[0]] = factors
+    return shard_rows(out, mesh, axis)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -862,27 +931,37 @@ def als_train(
     ``ckpt_resumed_from``. Restore/save failures degrade to
     from-scratch/skipped — checkpointing never fails a train.
 
-    ``mesh`` and ``row_axis`` are the reference's multi-device arguments;
-    the port does not support them yet and raises if one is given.
+    With ``mesh`` and ``row_axis`` (a :class:`~oryx_tpu_torch.parallel.
+    mesh.Mesh` and one of its axes; either alone is ignored, as in the
+    reference) the block counts are multiples of the axis's shard count,
+    each shard solves its blocks on its own device
+    (:func:`solve_side_sharded`), and X and Y come back as
+    :class:`ShardedRows` padded to the block boundary (``shape[0] =
+    n_blocks·block``, the padding rows zero): consumers slice ``full()``.
+    A fully trained checkpoint comes back the same way. ``device`` is then
+    unused: the packs and the gathers live on the axis's first device, and
+    ``timings`` also holds ``shards``, the shard count.
     """
-    for name, value in (("mesh", mesh), ("row_axis", row_axis)):
-        if value is not None:
-            raise NotImplementedError(
-                f"als_train: {name} is not supported by the port yet")
     if iterations < 1:
         raise ValueError(f"iterations must be >= 1, got {iterations}")
     if dtype not in _DTYPES:
         raise ValueError(
             f"compute dtype must be 'float32' or 'bfloat16', got {dtype!r}"
         )
-    dev = resolve(device)
+    shard_devs = None
+    if mesh is not None and row_axis is not None:
+        shard_devs = mesh.axis_devices(row_axis)
+        dev = resolve(shard_devs[0])
+    else:
+        dev = resolve(device)
+    ndev = 1 if shard_devs is None else len(shard_devs)
 
     n_users, n_items = len(batch.users), len(batch.items)
     k = features
-    block_u = _even_block(n_users, k, 1, block)
-    block_i = _even_block(n_items, k, 1, block)
+    block_u = _even_block(n_users, k, ndev, block)
+    block_i = _even_block(n_items, k, ndev, block)
     pack_user, pack_item = _side_packers(
-        batch, k, 1, block_u, block_i, chunk, slot_width, None, dev,
+        batch, k, ndev, block_u, block_i, chunk, slot_width, None, dev,
         layout_cache,
     )
     pool = cf.ThreadPoolExecutor(1, thread_name_prefix="oryx-als-pack")
@@ -910,6 +989,8 @@ def als_train(
             timings["pack_s"] = pack_user_s + wait_s
             timings["blocks"] = {"user": user_side.n_blocks,
                                  "item": side.n_blocks}
+            if shard_devs is not None:
+                timings["shards"] = ndev
             if layout_cache is not None:
                 timings["pack_modes"] = dict(layout_cache.last_modes)
         return side
@@ -919,8 +1000,9 @@ def als_train(
                                                           iterations):
             return
         # exact-size slices: checkpoints are block-layout-agnostic, so a
-        # resume survives a changed block geometry
-        checkpointer.submit(completed, {"x": x[:n_users], "y": y[:n_items]})
+        # resume survives a changed block or mesh geometry
+        checkpointer.submit(completed, {"x": _exact(x, n_users),
+                                        "y": _exact(y, n_items)})
 
     def finish_ckpt() -> None:
         if checkpointer is not None:
@@ -973,12 +1055,18 @@ def als_train(
             finish_ckpt()
             if timings is not None:
                 timings["iter_s"] = []
-            return (torch.from_numpy(restored[0]).to(dev),
-                    torch.from_numpy(restored[1]).to(dev))
+            rx, ry = (torch.from_numpy(r).to(dev) for r in restored)
+            if shard_devs is None:
+                return rx, ry
+            # the mesh contract: padded, row-sharded factors
+            return (_padded_shards(rx, _padded_rows_for(n_users, block_u, ndev),
+                                   mesh, row_axis),
+                    _padded_shards(ry, _padded_rows_for(n_items, block_i, ndev),
+                                   mesh, row_axis))
 
         # Y₀ needs only the item side's PADDED SHAPE: the first user
         # half-iteration must not wait on the item pack
-        padded_i = _padded_rows_for(n_items, block_i)
+        padded_i = _padded_rows_for(n_items, block_i, ndev)
         if restored is not None or init_y is not None:
             y0 = torch.as_tensor(
                 restored[1] if restored is not None else init_y,
@@ -992,18 +1080,32 @@ def als_train(
         else:
             y = init_item_factors(padded_i, n_items, k, generator, dev)
 
+        # the blocks of each side on their shards' devices, placed once
+        placed: dict = {}
+        if shard_devs is not None:
+            y = shard_rows(y, mesh, row_axis)
+
         def solve(side, opp):
             # one cost-accounted call per half that runs: a resumed train
             # records only the halves it runs
             profiling.costs().record(
                 "als.train.user_half" if side is user_side
                 else "als.train.item_half")
-            return solve_side_blocked(
-                opp, side.srows, side.scols, side.svals, side.slens, lam,
-                alpha, block=side.block, features=k, implicit=implicit,
+            if shard_devs is None:
+                return solve_side_blocked(
+                    opp, side.srows, side.scols, side.svals, side.slens, lam,
+                    alpha, block=side.block, features=k, implicit=implicit,
+                    slot_chunk=side.slot_chunk, dtype=dtype,
+                    spd_kernel=spd_kernel, fused_gramian=fused_gramian,
+                    schedules=side.gg_schedules,
+                )
+            if id(side) not in placed:
+                placed[id(side)] = shard_side(side, shard_devs)
+            return solve_side_sharded(
+                opp, placed[id(side)], shard_devs, row_axis, lam, alpha,
+                block=side.block, features=k, implicit=implicit,
                 slot_chunk=side.slot_chunk, dtype=dtype,
                 spd_kernel=spd_kernel, fused_gramian=fused_gramian,
-                schedules=side.gg_schedules,
             )
 
         iter_s = []
@@ -1017,13 +1119,16 @@ def als_train(
                 y = solve(item_side, x)
             maybe_ckpt(completed, x, y)
             if timings is not None:
-                _sync(dev)
+                for d in set(shard_devs or [dev]):
+                    _sync(d)
                 now = time.perf_counter()
                 iter_s.append(now - t_iter)
                 t_iter = now
         finish_ckpt()
         if timings is not None:
             timings["iter_s"] = iter_s
+        if shard_devs is not None:
+            return x, y
         return x[:n_users], y[:n_items]
     finally:
         # JOIN the worker on every exit: an orphaned item pack must not

@@ -19,8 +19,11 @@ splits ``rand.get_key()``. As in the reference, each updater keeps one
 slotted-layout cache across its generations, and with
 ``oryx.batch.checkpoint.enabled`` each candidate's trainer checkpoints
 under the generation's data fingerprint, which also names the published
-generation (a crash-restarted generation resumes and keeps its id). Not
-ported: the multi-device mesh.
+generation (a crash-restarted generation resumes and keeps its id). When
+the batch tier's context has a mesh of more than one device with a
+``model`` axis, the factor rows shard over that axis
+(``als_train(mesh=, row_axis="model")``), and the padded factors are cut
+to their real rows at publish.
 """
 
 from __future__ import annotations
@@ -107,6 +110,13 @@ class ALSUpdate(MLUpdate):
         record["prepare_s"] = time.perf_counter() - t0
         if batch.nnz == 0 or len(batch.users) == 0 or len(batch.items) == 0:
             return None
+        # factor rows shard over the mesh's model axis when the batch tier
+        # runs on several devices (ComputeContext)
+        mesh = row_axis = None
+        ctx_mesh = getattr(context, "mesh", None)
+        if (ctx_mesh is not None and ctx_mesh.size > 1
+                and "model" in ctx_mesh.axis_names):
+            mesh, row_axis = ctx_mesh, "model"
         # preemption tolerance: the checkpoint identity is the generation's
         # DATA fingerprint — input-topic offsets (stamped on the context by
         # the batch layer; None for direct/test callers), the candidate's
@@ -147,10 +157,17 @@ class ALSUpdate(MLUpdate):
                 timings=timings,
                 checkpointer=checkpointer,
                 device=dev,
+                mesh=mesh,
+                row_axis=row_axis,
             )
         finally:
             if cache is not None:
                 self._layout_cache_lock.release()
+        if mesh is not None:
+            # mesh factors come back row-sharded and padded to the block
+            # boundary: cut to the real rows
+            x = x.full()[:len(batch.users)]
+            y = y.full()[:len(batch.items)]
         x, y = x.cpu().numpy(), y.cpu().numpy()
         record.update(train_s=time.perf_counter() - t0, device=str(dev),
                       **timings)

@@ -11,6 +11,12 @@ original Oryx):
     kernel :func:`~oryx_tpu_torch.ops.kernels.kmeans_assign_accumulate`.
     An empty cluster keeps its centre (MLlib's behaviour). Restarts run one
     after another; the lowest cost wins, the first on a tie.
+  * the data-parallel Lloyd step: :func:`_lloyd_run` given points and
+    weights as :class:`~oryx_tpu_torch.parallel.mesh.ShardedRows` (rows
+    split over a mesh's ``data`` axis) runs each shard's sweep on its own
+    device, adds the sums, counts and cost over the shards in shard order
+    (the counterpart of the reference's psum under a sharded data axis),
+    and copies the next centres back to every shard.
   * :func:`fit_index_centroids` — the bounded deterministic fit for an IVF
     index, in plain torch as the reference computes it (no kernel): Lloyd
     sweeps from k-means++ centres, then empty clusters reseeded onto the
@@ -32,6 +38,7 @@ import torch
 from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common.device import resolve
 from oryx_tpu_torch.ops import kernels as K
+from oryx_tpu_torch.parallel.mesh import ShardedRows, replicated
 
 INIT_RANDOM = "random"
 INIT_KMEANS_PARALLEL = "k-means||"
@@ -89,12 +96,31 @@ def _init_centers(generator, points, k: int, init: str):
     return _init_plus_plus(generator, points, k)
 
 
+def _sweep_sharded(points: ShardedRows, weights: ShardedRows, centers):
+    """One sweep over row shards: each shard's kernel on its device against
+    its copy of ``centers``, then the sums, counts and costs added in shard
+    order on ``centers``' device."""
+    home = centers.device
+    sums = counts = cost = None
+    for p, w, c in zip(points.shards, weights.shards,
+                       replicated(centers, points.devices)):
+        s, n, e = (t.to(home) for t in K.kmeans_assign_accumulate(p, w, c))
+        if sums is None:
+            sums, counts, cost = s, n, e
+        else:
+            sums, counts, cost = sums + s, counts + n, cost + e
+    return sums, counts, cost
+
+
 def _lloyd_run(points, weights, centers, iterations: int):
     """``iterations`` sweeps from ``centers`` and a last one that reads only
-    counts and cost: ``iterations + 1`` kernel calls, no host sync."""
+    counts and cost: ``iterations + 1`` kernel calls (a call per shard when
+    ``points`` and ``weights`` are :class:`ShardedRows`), no host sync."""
+    sweep = (_sweep_sharded if isinstance(points, ShardedRows)
+             else K.kmeans_assign_accumulate)
     counts = cost = None
     for i in range(iterations + 1):
-        sums, counts, cost = K.kmeans_assign_accumulate(points, weights, centers)
+        sums, counts, cost = sweep(points, weights, centers)
         if i < iterations:
             new_centers = sums / counts.clamp_min(1.0)[:, None]
             centers = torch.where((counts > 0)[:, None], new_centers, centers)

@@ -21,6 +21,7 @@ from oryx_tpu.models.als import train as ref_tr
 from oryx_tpu_torch import state
 from oryx_tpu_torch.models.als import train as tr
 from oryx_tpu_torch.models.als.data import RatingBatch
+from oryx_tpu_torch.parallel.mesh import ShardedRows, make_mesh
 from test_gramian_kernel import _skewed_batch
 
 # six xdist workers share the CPU with wall-clock gates elsewhere in the suite
@@ -137,13 +138,25 @@ def test_als_train_matches_reference_from_injected_y0(implicit):
 
 
 def test_unported_arguments_raise():
+    """``mesh`` with ``row_axis`` trains on the mesh (padded, row-sharded
+    factors); either alone is ignored, as in the reference; a bad compute
+    dtype still raises."""
     batch, k = _skewed_batch(8)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, mesh=object(),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="row_axis"):
-        tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, row_axis="model",
-                     device="cpu")
+
+    def train(**kwargs):
+        return tr.als_train(_port_batch(batch), k, 0.01, 1.0, True,
+                            iterations=1, device="cpu",
+                            generator=torch.Generator().manual_seed(1),
+                            **kwargs)
+
+    mesh = make_mesh(axes=("model",), devices=["cpu"] * 2)
+    x1, y1 = train()
+    x2, y2 = train(mesh=mesh, row_axis="model")
+    assert isinstance(x2, ShardedRows) and x2.n_shards == 2
+    assert torch.allclose(x2.full()[:x1.shape[0]], x1, rtol=2e-4, atol=2e-5)
+    assert torch.allclose(y2.full()[:y1.shape[0]], y1, rtol=2e-4, atol=2e-5)
+    for alone in ({"mesh": mesh}, {"row_axis": "model"}):
+        assert torch.equal(train(**alone)[0], x1)
     with pytest.raises(ValueError, match="compute dtype"):
         tr.als_train(_port_batch(batch), k, 0.01, 1.0, True, dtype="bf16",
                      device="cpu")

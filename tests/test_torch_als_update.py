@@ -16,7 +16,8 @@ serving manager against the reference's, at a small size.
   ``test_torch_als_serving.py``) and the same load fraction along the
   stream; a second ``MODEL`` with the same features retains as the
   reference does, one with new features makes a new model;
-* the settings the port does not have raise at construction.
+* ``oryx.serving.compute.sharded`` serves unsharded on one device and
+  shards over several.
 """
 
 from __future__ import annotations
@@ -385,16 +386,42 @@ def _write_model(tmp_path, users, items):
 
 
 @pytest.mark.parametrize("overlay", [
-    # sharded serving (and with it the reference's int8 + mesh fallback)
-    # is not ported, whatever the representation
+    # sharded serving, and with it the reference's int8 + mesh fallback,
+    # whatever the representation
     {"oryx.serving.compute.sharded": True},
     {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8"},
     {"oryx.serving.compute.sharded": True, "oryx.serving.device-dtype": "int8",
      "oryx.serving.index.enabled": True},
 ])
-def test_unsupported_serving_settings_raise_at_construction(overlay):
-    with pytest.raises(NotImplementedError):
-        ALSServingModelManager(cfg.overlay_on(overlay, cfg.get_default()), device="cpu")
+def test_unsupported_serving_settings_raise_at_construction(overlay, tmp_path,
+                                                            monkeypatch, caplog):
+    """``oryx.serving.compute.sharded`` is taken: on one device the manager
+    logs and serves unsharded, as the reference does; with more local
+    devices it shards every model over all of them on ``model``, where
+    int8 degrades to bfloat16 with the reference's warning."""
+    from oryx_tpu_torch.models.als import serving as serving_mod
+
+    conf = cfg.overlay_on(overlay, cfg.get_default())
+    users, items = ["u0", "u1"], ["a", "b", "c"]
+    with caplog.at_level("INFO"):
+        one = ALSServingModelManager(conf, device="cpu")
+    assert one.mesh is None and "only one device" in caplog.text
+    one.consume_key_message("MODEL", _model_text(tmp_path, "one", users, items, 6))
+    assert one.get_model().mesh is None
+    assert one.get_model().device_dtype == conf.get_string("oryx.serving.device-dtype")
+    monkeypatch.setattr(serving_mod, "local_devices",
+                        lambda platform=None: [torch.device("cpu")] * 2)
+    two = ALSServingModelManager(conf, device="cpu")
+    assert two.mesh.size == 2 and two.mesh.axis_names == ("model",)
+    two.consume_key_message("MODEL", _model_text(tmp_path, "two", users, items, 6))
+    model = two.get_model()
+    assert model.mesh is two.mesh and model.device_dtype in ("auto", "bfloat16")
+    assert (model.device_dtype == "bfloat16") == (
+        conf.get_string("oryx.serving.device-dtype") == "int8")
+    for i, item in enumerate(items):
+        model.set_item_vector(item, np.eye(6, dtype=np.float32)[i])
+    assert model.y_snapshot().sharded_mat.n_shards == 2
+    assert [i for i, _ in model.top_n(np.eye(6, dtype=np.float32)[1], 1)] == ["b"]
 
 
 def test_supported_serving_settings_construct():

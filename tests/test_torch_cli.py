@@ -265,13 +265,25 @@ def test_cli_unported_commands_exit_2(command, message):
 
 
 def test_distributed_is_single_host_only():
+    """No coordinator starts nothing; a configured one joins a
+    ``torch.distributed`` group (here a one-rank ``gloo`` group, the CPU
+    platform's backend), idempotently, until ``shutdown``."""
     assert distributed.initialize_from_config(cfg.get_default()) is False
     assert distributed.is_initialized() is False
-    conf = cfg.overlay_on({"oryx.distributed.coordinator": "host0:8476",
-                           "oryx.distributed.num-processes": 2,
-                           "oryx.distributed.process-id": 0}, cfg.get_default())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        distributed.initialize_from_config(conf)
+    conf = cfg.overlay_on({"oryx.distributed.coordinator":
+                           f"127.0.0.1:{ioutils.choose_free_port()}",
+                           "oryx.distributed.num-processes": 1,
+                           "oryx.distributed.process-id": 0,
+                           "oryx.default-compute-config.platform": "cpu"},
+                          cfg.get_default())
+    try:
+        assert distributed.initialize_from_config(conf) is True
+        assert distributed.is_initialized() is True
+        assert distributed.initialize_from_config(conf) is True
+        assert torch.distributed.get_world_size() == 1
+        assert torch.distributed.get_backend() == "gloo"
+    finally:
+        distributed.shutdown()
     assert distributed.is_initialized() is False
 
 

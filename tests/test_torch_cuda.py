@@ -289,6 +289,62 @@ def test_als_train_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_mesh_als_train_launches_per_shard_on_the_card(cuda_device):
+    """The mesh path on four mesh entries of the one card: every shard's
+    blocks launch both kernels (iterations x blocks in all), and the
+    factors agree with the one-device train within the reference's
+    rtol=2e-4, atol=2e-5."""
+    from oryx_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 1)
+    n_users, n_items, nnz, k = 900, 400, 12000, 50
+    rows = np.sort(rng.integers(0, n_users, nnz)).astype(np.int32)
+    batch = RatingBatch(rows, rng.integers(0, n_items, nnz).astype(np.int32),
+                        np.ones(nnz, np.float32), range(n_users),
+                        range(n_items))
+    y0 = 0.1 * rng.standard_normal((n_items, k)).astype(np.float32)
+    x1, y1 = tr.als_train(batch, k, 0.1, 1.0, True, 2, init_y=y0, block=128)
+    mesh = make_mesh(axes=("model",), devices=[cuda_device] * 4)
+    timings: dict = {}
+    K.reset_launches()
+    x2, y2 = tr.als_train(batch, k, 0.1, 1.0, True, 2, init_y=y0, block=128,
+                          mesh=mesh, row_axis="model", timings=timings)
+    torch.cuda.synchronize()
+    blocks = timings["blocks"]["user"] + timings["blocks"]["item"]
+    assert timings["blocks"]["user"] % 4 == 0 and timings["blocks"]["item"] % 4 == 0
+    assert K.LAUNCHES["gather_gramian_accumulate"] == 2 * blocks
+    assert K.LAUNCHES["spd_solve_batched"] == 2 * blocks
+    for got, ref in ((x2.full()[:n_users], x1), (y2.full()[:n_items], y1)):
+        assert torch.allclose(got, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_mesh_lloyd_step_per_shard_on_the_card(cuda_device):
+    """The data-parallel Lloyd step on four mesh entries of the one card:
+    a sweep launch per shard and iteration; from the same centres, each
+    step's centres within 1e-4 / 1e-5 of the unsharded step's (the two
+    planted-blob runs take the same assignments)."""
+    from oryx_tpu_torch.parallel.mesh import make_mesh, shard_rows
+
+    rng = np.random.default_rng(SEED + 2)
+    means = rng.uniform(-10.0, 10.0, (32, 16)).astype(np.float32)
+    pts = torch.from_numpy(
+        (means[rng.integers(0, 32, 40_000)]
+         + rng.standard_normal((40_000, 16))).astype(np.float32)).to(cuda_device)
+    w = torch.ones(40_000, device=cuda_device)
+    c0 = torch.from_numpy(means + 0.5).to(cuda_device)
+    mesh = make_mesh(axes=("data",), devices=[cuda_device] * 4)
+    K.reset_launches()
+    c2, n2, cost2 = kmtrain._lloyd_run(shard_rows(pts, mesh, "data"),
+                                       shard_rows(w, mesh, "data"), c0, 5)
+    assert K.LAUNCHES["kmeans_assign_accumulate"] == 4 * 6
+    c1, n1, cost1 = kmtrain._lloyd_run(pts, w, c0, 5)
+    assert torch.allclose(c2, c1, rtol=1e-4, atol=1e-5)
+    assert torch.equal(n2, n1)
+    assert abs(float(cost2) - float(cost1)) <= 1e-4 * float(cost1)
+
+
+@pytest.mark.cuda
 def test_half_iteration_with_packed_schedules_makes_no_host_sync(cuda_device):
     """An item half-iteration through the kernels with the pack's
     gather-Gramian schedules (a hot item makes split rows) runs with

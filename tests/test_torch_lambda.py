@@ -843,7 +843,9 @@ def test_compute_context_is_one_device_and_refuses_a_mesh():
     assert (c.input_offsets, c.input_watermark_ms, c.lineage_origin) == (None, None, None)
     assert _counter("oryx_build_info", 'version="0.1.0",backend="cpu",device_kind="cpu"') == 1
     assert ctx(platform="cpu", **{"mesh-shape": [1, 1]}).num_devices == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
+    assert c.mesh.shape == {"data": 1, "model": 1}
+    # the reference's refusal of a mesh larger than the local devices
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         ctx(platform="cpu", **{"mesh-shape": [2, 1]})
     with pytest.raises(ValueError, match="platform"):
         ctx(platform="tpu")

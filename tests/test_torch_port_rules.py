@@ -61,8 +61,10 @@ def _port_sources():
     yield os.path.join(REPO, "rdf_seed_spread.py")
 
 
-def _imported_modules(path):
-    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+def _imported_modules(path, source=None):
+    if source is None:
+        source = open(path, encoding="utf-8").read()
+    tree = ast.parse(source, filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -107,6 +109,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         for mod in _imported_modules(path):
             if mod.split(".")[0] in _FORBIDDEN:
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    # the two-rank program of the torch.distributed bootstrap's test
+    from test_torch_distributed import _RANK_PROG
+
+    rank_modules = list(_imported_modules("<rank program>", _RANK_PROG))
+    assert "oryx_tpu_torch.parallel" in rank_modules
+    bad += [m for m in rank_modules if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
 
 
@@ -362,10 +370,11 @@ def test_serving_layer_refuses_a_rescorer_provider_at_construction():
     ("oryx.serving.compute.sharded", True),
 ])
 def test_serving_manager_still_refuses_what_is_not_ported(key, value):
-    """Sharded serving stays refused at construction; every other serving
-    setting of the reference is taken, the staged swap's too."""
-    with pytest.raises(NotImplementedError):
-        ALSServingModelManager(_serving_config(0, {key: value}), device="cpu")
+    """Every serving setting of the reference is taken: sharded serving
+    (on one device the manager serves unsharded, as the reference does),
+    the representations, the index and the staged swap."""
+    sharded = ALSServingModelManager(_serving_config(0, {key: value}), device="cpu")
+    assert sharded.mesh is None
     taken = ALSServingModelManager(_serving_config(0, {
         "oryx.serving.device-dtype": "int8", "oryx.als.sample-rate": 0.3,
         "oryx.serving.index.enabled": True, "oryx.serving.index.cells": 4,

@@ -112,10 +112,15 @@ def test_metrics_dump_views_equal_the_reference(tmp_path, capsys, flags):
 
 
 def test_live_registry_dump_equals_the_reference(tmp_path, capsys):
+    """The live registry holds whatever the tests before this one in the
+    same process recorded: ask for a ``--top`` that lists every series of
+    the dump, so the counter shows whatever else is there."""
     reg = metrics_mod.default_registry()
     reg.counter("oryx_trace_summary_test_total", "a test counter").inc(3)
-    dump = _write(tmp_path / "live.prom", reg.render())
-    rc, out = _both([dump, "--top", "40"], capsys)
+    text = reg.render()
+    series = sum(1 for ln in text.splitlines() if ln and not ln.startswith("#"))
+    dump = _write(tmp_path / "live.prom", text)
+    rc, out = _both([dump, "--top", str(series)], capsys)
     assert rc == 0 and "oryx_trace_summary_test_total" in out
 
 
