@@ -381,6 +381,24 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            generation 2's ``MODEL`` alone behind generation 1 is promoted
            by the deadline (counter + 1). No kernel launches but
            generation 2's;
+  sanitize the port's runtime concurrency sanitizer
+           (``oryx_tpu_torch/tools/sanitize``) in a child interpreter,
+           ``tests/torch_sanitize_child.py probe`` under
+           ``ORYX_SANITIZE=locks,loop`` (it must install before the first
+           lock is allocated, so never in this process, which stays
+           unsanitized): (a) the install took — ``threading.Lock``,
+           ``RLock`` and ``asyncio``'s ``Handle._run`` are the port's, both
+           modes on, a lock allocated from a repo frame is a ``SanLock``;
+           (b) inside ``sanitize.isolated()`` the two-thread lock inversion
+           of ``tests/test_sanitize.py``'s installed-wrappers case gives
+           exactly one cycle (both edges with their acquisition stacks) and
+           a 400 ms blocking asyncio callback exactly one stall with its
+           live stack, and neither reaches the child's own exit report;
+           (c) the overhead that ``tests/test_load_benchmark.py`` gates on
+           the CPU, reported here, not gated: bookkeeping events per
+           ``top_n_batch`` call (the port's ``ALSServingModel``, 5,000 ×
+           16 on the card, batch 128, top 5) × the per-event cost (min of 3
+           windows of 5,000 acquire/release pairs) ÷ the mean call;
   deployment
            the same ALS loop as a deployment, last: five processes started
            through ``python -m oryx_tpu_torch.cli`` on one HOCON file (each
@@ -424,7 +442,15 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            tier and the broker: each must exit 0 within 30 s, and no tier's
            bundle may count a quarantine, corrupt record, layer failure,
            failed send or consumer restart. On a failure the last 40 lines
-           of each process's output are printed.
+           of each process's output are printed. The five processes run
+           sanitized (``ORYX_SANITIZE=locks,loop``, long holds from 1 ms
+           so that every process shows its wrappers live, the loop-stall
+           threshold the config's 250 ms; this process stays unsanitized)
+           and, since SIGTERM is a normal exit, each prints its sanitizer
+           report at exit: any lock-order cycle in any process fails the
+           phase; per process the loop stalls (count, the longest, its
+           blocked frame) and the long holds are printed (``sanitizer``),
+           and the processes that report none are named.
 
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the durability phase
@@ -460,6 +486,7 @@ import io
 import json
 import logging
 import multiprocessing as mp
+import os
 import re
 import socket
 import subprocess
@@ -516,6 +543,7 @@ from oryx_tpu_torch.parallel import distributed
 from oryx_tpu_torch.parallel.mesh import ComputeContext, make_mesh, shard_rows
 from oryx_tpu_torch.pmml import pmmlutils
 from oryx_tpu_torch.serving.app import ServingLayer
+from oryx_tpu_torch.tools import sanitize as port_sanitize
 from oryx_tpu_torch.tools import trace_summary
 from oryx_tpu_torch.tools import traffic
 from oryx_tpu_torch.transport import topic as tp
@@ -621,6 +649,14 @@ HTTP_QUANT_SIMILARITY = 100
 # consuming, so 5,000 lines took 100 s), after up to 20 probe lines sent
 # one by one until the speed tier publishes
 DEPLOY_REPLICAS, DEPLOY_MICROBATCH, DEPLOY_PROBE_LINES = 2, 2_500, 20
+
+# the port's sanitizer: the sanitize phase's child, and the environment of
+# the deployment's processes (every lock hold from 1 ms reported, as
+# information: it shows each process's wrappers live; the loop-stall
+# threshold stays the config's oryx.sanitize.loop-stall-ms, 250 ms)
+SANITIZE_CHILD = Path(__file__).resolve().parent / "tests" / "torch_sanitize_child.py"
+SANITIZE_ENV = {"ORYX_SANITIZE": "locks,loop"}
+DEPLOY_SANITIZE_ENV = {**SANITIZE_ENV, "ORYX_SANITIZE_LONG_HOLD_MS": "1"}
 
 
 class SmokeFailure(AssertionError):
@@ -4496,9 +4532,19 @@ def bulk_load(root: Path, topic: str, lines) -> None:
     check(broker.size(topic) == len(lines), "deployment: the bulk-loaded log's size")
 
 
+def child_env(overrides: dict) -> dict:
+    """This process's environment with every ``ORYX_SANITIZE*`` variable
+    replaced by ``overrides`` (a child then runs sanitized exactly as
+    asked, whatever this process was started with)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ORYX_SANITIZE")}
+    env.update(overrides)
+    return env
+
+
 class _Process:
-    """One CLI process: its ``Popen``, its name as a tier (for
-    ``wait_until``'s ``layers``) and its output file."""
+    """One CLI process, sanitized (``DEPLOY_SANITIZE_ENV``): its ``Popen``,
+    its name as a tier (for ``wait_until``'s ``layers``) and its output
+    file, which ends with its sanitizer report once it exits."""
 
     def __init__(self, name: str, argv: list, log: Path):
         self.tier = name
@@ -4507,7 +4553,8 @@ class _Process:
         with open(log, "wb") as out:
             self.popen = subprocess.Popen(
                 [sys.executable, "-m", "oryx_tpu_torch.cli", *argv],
-                stdout=out, stderr=subprocess.STDOUT, cwd=REPO_ROOT)
+                stdout=out, stderr=subprocess.STDOUT, cwd=REPO_ROOT,
+                env=child_env(DEPLOY_SANITIZE_ENV))
 
     @property
     def stopped(self) -> bool:
@@ -4529,7 +4576,9 @@ class Deployment:
     ``ALSServingModelManager`` on ``local_device`` (None: the card)
     consuming the update topic from ``earliest`` on its own thread, which
     records when each message lands (``landed``) and when it is applied
-    (``applied``). The tests drive it on the CPU at a small size."""
+    (``applied``). The processes run sanitized, each printing its report
+    at exit (:meth:`sanitizer_reports`). The tests drive it on the CPU at a
+    small size."""
 
     def __init__(self, tmp: str, overrides: dict, replicas: int, local_device=None):
         self.tmp = Path(tmp)
@@ -4688,6 +4737,12 @@ class Deployment:
         return "\n".join(f"--- {name} (exit {p.popen.poll()}), last 40 lines:\n{p.tail()}"
                          for name, p in self.procs.items())
 
+    def sanitizer_reports(self) -> dict:
+        """Each process's sanitizer exit report, parsed from its output
+        (:func:`sanitizer_report`); read after the processes exited."""
+        return {name: sanitizer_report(p.log.read_text(errors="replace"))
+                for name, p in self.procs.items()}
+
     # -- reads --------------------------------------------------------------------
     def update_size(self) -> int:
         return self.broker.size(self.update_topic)
@@ -4755,6 +4810,70 @@ class Deployment:
                 return n
         raise SmokeFailure(f"deployment: the speed tier published nothing for "
                            f"{len(lines)} probe lines")
+
+
+def _blocked_frame(stack: list) -> str:
+    """The innermost ``File ..., line N, in fn`` of a formatted stack's
+    lines, with its source line."""
+    lines = [ln.strip() for ln in stack]
+    for j in range(len(lines) - 1, -1, -1):
+        if lines[j].startswith("File "):
+            src = lines[j + 1] if j + 1 < len(lines) else ""
+            return f"{lines[j]}: {src}" if src else lines[j]
+    return ""
+
+
+def sanitizer_report(text: str) -> dict:
+    """The sanitizer's exit report (``sanitize.render_report``) in a
+    process's output, parsed: ``report`` (the header was printed: the
+    sanitizer is installed and found something), its ``modes``, the
+    lock-order ``cycles`` (each ring with the first lines of its stacks),
+    the ``stalls`` (count, the longest, each one's milliseconds, callback,
+    thread and blocked frame) and the ``long_holds`` (count, which the
+    sanitizer caps at 64 a process, the longest and its site, and the
+    count by site)."""
+    out: dict = {"report": False, "modes": None, "cycles": [],
+                 "stalls": {"count": 0, "longest_ms": None, "each": []},
+                 "long_holds": {"count": 0, "longest_ms": None, "longest_site": None,
+                                "by_site": {}}}
+    block = None  # the indented lines under the last cycle or stall
+    for line in text.splitlines():
+        if line.startswith("oryx sanitizer report (modes: "):
+            out["report"] = True
+            out["modes"] = line[len("oryx sanitizer report (modes: "):].rstrip(")")
+            block = None
+        elif line.startswith("LOCK-ORDER CYCLE: "):
+            block = []
+            out["cycles"].append({"ring": line[len("LOCK-ORDER CYCLE: "):],
+                                  "lines": block})
+        elif line.startswith("LOOP STALL: "):
+            ms, _, rest = line[len("LOOP STALL: "):].partition(" ms in ")
+            callback, _, thread = rest.rpartition(" on ")
+            block = []
+            out["stalls"]["each"].append({"ms": float(ms), "callback": callback,
+                                          "thread": thread, "stack": block})
+        elif line.startswith("LONG HOLD: "):
+            block = None
+            site, _, rest = line[len("LONG HOLD: "):].partition(" held ")
+            ms = float(rest.partition(" ms on ")[0])
+            holds = out["long_holds"]
+            holds["count"] += 1
+            holds["by_site"][site] = holds["by_site"].get(site, 0) + 1
+            if holds["longest_ms"] is None or ms > holds["longest_ms"]:
+                holds["longest_ms"], holds["longest_site"] = ms, site
+        elif block is not None and line.startswith("  "):
+            block.append(line)
+        else:
+            block = None
+    for cyc in out["cycles"]:
+        cyc["lines"] = cyc["lines"][:12]
+    stalls = out["stalls"]
+    for st in stalls["each"]:
+        st["blocked_at"] = _blocked_frame(st.pop("stack"))
+    stalls["count"] = len(stalls["each"])
+    if stalls["each"]:
+        stalls["longest_ms"] = max(st["ms"] for st in stalls["each"])
+    return out
 
 
 def publish_us(landed, start: int, end: int) -> dict:
@@ -5011,11 +5130,94 @@ def deployment_run(dep: Deployment, lines, rng, timeout: float = 600) -> dict:
     return out
 
 
+def sanitizer_summary(reports: dict, what: str) -> dict:
+    """The sanitized processes' exit reports (``Deployment.sanitizer_reports``)
+    in brief: per process its modes, cycles, stalls (count, the longest,
+    the ten longest with their blocked frames) and long holds (count, the
+    longest and its site, the five sites with the most of them); the
+    processes that printed no report, and those that report no long hold.
+    Fails on any lock-order cycle, after printing each one."""
+    per: dict = {}
+    cycles = {}
+    for name, rep in reports.items():
+        stalls = rep["stalls"]
+        holds = rep["long_holds"]
+        per[name] = {
+            "modes": rep["modes"], "cycles": len(rep["cycles"]),
+            "stalls": {"count": stalls["count"], "longest_ms": stalls["longest_ms"],
+                       "longest": sorted(stalls["each"], key=lambda st: -st["ms"])[:10]},
+            "long_holds": {"count": holds["count"], "longest_ms": holds["longest_ms"],
+                           "longest_site": holds["longest_site"],
+                           "top_sites": dict(sorted(holds["by_site"].items(),
+                                                    key=lambda kv: -kv[1])[:5])}}
+        if rep["cycles"]:
+            cycles[name] = rep["cycles"]
+    for name, found in cycles.items():
+        for cyc in found:
+            print(f"{what}: {name}: LOCK-ORDER CYCLE: {cyc['ring']}\n"
+                  + "\n".join(cyc["lines"]), file=sys.stderr, flush=True)
+    check(not cycles, f"{what}: lock-order cycles in "
+          f"{ {name: len(found) for name, found in cycles.items()} }")
+    return {"processes": per,
+            "stalls": sum(p["stalls"]["count"] for p in per.values()),
+            "no_report": sorted(n for n, rep in reports.items() if not rep["report"]),
+            "no_long_holds": sorted(n for n, rep in reports.items()
+                                    if not rep["long_holds"]["count"])}
+
+
+def sanitize_phase(device: str = "cuda", timeout: float = 300) -> dict:
+    """The port's sanitizer in a child interpreter (see the module
+    docstring): ``tests/torch_sanitize_child.py probe`` under
+    ``ORYX_SANITIZE=locks,loop``; (a) and (b) are checked, (c) the
+    overhead is reported."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(SANITIZE_CHILD), "probe", "--device", device],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO_ROOT,
+        env=child_env(SANITIZE_ENV))
+    child_s = time.perf_counter() - t0
+    check(done.returncode == 0, f"sanitize: the child exited {done.returncode}: "
+          f"{done.stderr[-3000:]}")
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    install = out["install"]
+    check(install == {"modes": ["locks", "loop"], "lock": "port", "rlock": "port",
+                      "handle_run": "oryx_tpu_torch.tools.sanitize.loop",
+                      "lock_type": "SanLock"},
+          f"sanitize: the child's install did not take: {install}")
+    iso = out["isolated"]
+    cycles, stalls = iso["cycles"], iso["stalls"]
+    check(len(cycles) == 1 and cycles[0]["edges"] == 2 and cycles[0]["stacks"] == 2
+          and all("torch_sanitize_child.py" in site for site in cycles[0]["ring"]),
+          f"sanitize: the inversion gave {cycles}, not one cycle with both stacks")
+    for st in stalls:
+        st["blocked_at"] = _blocked_frame(st.pop("stack").splitlines())
+    check(len(stalls) == 1 and stalls[0]["stalled_ms"] >= iso["stall_threshold_ms"]
+          and "time.sleep" in stalls[0]["blocked_at"],
+          f"sanitize: the 400 ms callback gave {stalls}, not one stall with its "
+          "live stack")
+    check(iso["rendered"] == {"cycles": 1, "stalls": 1, "blocked_at": 1},
+          f"sanitize: the rendered report holds {iso['rendered']}")
+    # the isolated window keeps the deliberate cycle and stall out of the
+    # child's own report, printed at its exit
+    own = sanitizer_report(done.stderr)
+    check(not own["cycles"] and not own["stalls"]["count"],
+          f"sanitize: the child's exit report holds {len(own['cycles'])} cycles, "
+          f"{own['stalls']['count']} stalls")
+    out["child_exit_report"] = {"report": own["report"],
+                                "long_holds": own["long_holds"]["count"]}
+    out["child_s"] = child_s
+    # this process's own sanitizer modes: none unless ORYX_SANITIZE was set
+    out["this_process_modes"] = sorted(port_sanitize.modes())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def deployment_phase(lines, rng, in_process: dict) -> dict:
     """The ALS loop as a deployment (see the module docstring): five
-    processes through the port's CLI over ``tcp:``, checked against a
-    manager in this process; beside it the in-process loop's figures from
-    this run (``in_process``: the ``lambda_loop`` line's ``speed``)."""
+    sanitized processes through the port's CLI over ``tcp:``, checked
+    against a manager in this process; beside it the in-process loop's
+    figures from this run (``in_process``: the ``lambda_loop`` line's
+    ``speed``)."""
     K.reset_launches()
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -5028,6 +5230,10 @@ def deployment_phase(lines, rng, in_process: dict) -> dict:
             raise
         finally:
             dep.close()
+        reports = dep.sanitizer_reports()
+        out["sanitized"] = {"env": DEPLOY_SANITIZE_ENV, "loop_stall_ms":
+                            dep.conf.get_float("oryx.sanitize.loop-stall-ms")}
+    out["sanitizer"] = sanitizer_summary(reports, "deployment")
     check(not any(K.LAUNCHES.values()),
           f"deployment: kernels launched in this process: {K.LAUNCHES}")
     check(out["auc"] > 0.75, f"deployment: hold-out AUC {out['auc']} <= 0.75")
@@ -6397,7 +6603,9 @@ def main() -> int:
         "load": f"{SWAP_CONNECTIONS} connections over {HTTP_USERS} users"})
     emit("serving_quant_http", **quant_http, gpu=smi)
     generation, speed = loop["batch"], loop["speed"]
-    # the same loop as a deployment of CLI processes over tcp:
+    # the port's sanitizer in a child (this process stays unsanitized)
+    emit("sanitize", **sanitize_phase(), gpu=smi)
+    # the same loop as a deployment of sanitized CLI processes over tcp:
     deployment = deployment_phase(loop_lines, rng, speed)
     emit("deployment", **deployment)
 

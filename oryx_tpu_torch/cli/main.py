@@ -15,7 +15,10 @@ The port of the JAX package's ``oryx_tpu/cli/main.py`` (which is unchanged:
     non-zero from ``start()``, before any topic, thread or socket. There
     is no ``JAX_PLATFORMS`` block.
   * ``analyze`` (it analyses the JAX package's sources) is not ported: it
-    exits 2 with a message naming the ROADMAP item it waits for.
+    exits 2 with a message naming the slice it waits for, ROADMAP Queue 1
+    item 7d's second half (the analyser's checkers that apply to torch
+    code, and the catalog gates). The sanitizer, 7d's first half, is
+    ported: ``ORYX_SANITIZE=locks,loop`` sanitizes every command.
   * ``broker``, the topic tools and ``fleet-status`` import no torch:
     they are pure transport or pure HTTP, as in the reference.
 
@@ -269,9 +272,10 @@ def cmd_fleet_status(argv: "list[str]") -> int:
 
 def cmd_analyze(argv: "list[str]") -> int:
     """Not ported: the static analyser runs over the JAX package's sources
-    (ROADMAP Queue 1, item 7). Exits 2."""
+    (ROADMAP Queue 1, item 7d, the slice after the sanitizer). Exits 2."""
     print("analyze: not ported yet: the analyser and its gates run over "
-          "the JAX package only (ROADMAP Queue 1, item 7)", file=sys.stderr)
+          "the JAX package only (ROADMAP Queue 1, item 7d: cli analyze and "
+          "the catalog gates)", file=sys.stderr)
     return 2
 
 

@@ -13,8 +13,8 @@ Two changes from the JAX package:
   * ``__init__`` configures only the hooks the port has (metrics, spans,
     resilience, faults, blackbox, the SLO engine, the tsdb sampler, the
     ``tcp:`` client defaults, the file broker's fsync policy, profiling,
-    the factor arena's sizing). The reference's compile cache has no torch
-    counterpart; its sanitizer hooks are not ported (ROADMAP Queue 1).
+    the factor arena's sizing, the sanitizer's thresholds). The
+    reference's compile cache has no torch counterpart.
   * The context's device is resolved first in ``start()``, before any
     topic is checked, any thread spawned or any socket opened: a layer
     configured for the card on a host without one raises there, instead of
@@ -99,6 +99,11 @@ class AbstractLayer:
         from oryx_tpu_torch.models.als import vectors as als_vectors
 
         als_vectors.configure(config)
+        # sanitizer thresholds (oryx.sanitize.*; a threshold tune when
+        # ORYX_SANITIZE installed the sanitizer at import, a no-op else)
+        from oryx_tpu_torch.tools import sanitize
+
+        sanitize.configure(config)
         self.tracer = StepTracer(config, tier)
         self.id = config.get_string("oryx.id", None)
         self.input_broker = config.get_string("oryx.input-topic.broker")

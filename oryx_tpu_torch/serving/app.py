@@ -7,9 +7,8 @@ JAX) on the same aiohttp, held to it over HTTP by
   * :func:`make_app` configures only the hooks the port has (metrics,
     spans, resilience, faults, blackbox, the SLO engine, the tsdb sampler,
     lineage, the ``tcp:`` client defaults, the file broker's fsync policy,
-    profiling, the factor arena's sizing). The reference's compile cache
-    has no torch counterpart; its sanitizer hooks are not ported (ROADMAP
-    Queue 1).
+    profiling, the factor arena's sizing, the sanitizer's thresholds). The
+    reference's compile cache has no torch counterpart.
   * ``ServingLayer(config, device=None)`` serves a model on ``device``:
     None means the CUDA card. ``start()`` resolves it before it creates a
     topic, a thread, a producer or a socket, so on a host without a card it
@@ -418,10 +417,14 @@ def make_app(config, manager, input_producer=None) -> web.Application:
     from oryx_tpu_torch.models.als import vectors as als_vectors
 
     als_vectors.configure(config)
-    # not ported: sanitize.configure (tooling, ROADMAP Queue 1)
     # roofline peaks + device-memory gauges + the profiler session config
     # (after the others; the device half wires once CUDA is initialised)
     profiling.configure(config)
+    # concurrency-sanitizer thresholds (oryx.sanitize.*): install happened
+    # at import when ORYX_SANITIZE was set; this only tunes thresholds
+    from oryx_tpu_torch.tools import sanitize
+
+    sanitize.configure(config)
     middlewares = [_metrics_middleware, rsrc.error_middleware, _compression_middleware]
     dl_mw = _deadline_middleware(config)
     if dl_mw is not None:

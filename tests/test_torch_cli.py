@@ -159,8 +159,10 @@ def test_cli_als_loop_as_processes(tmp_path):
     1e-5, the batch generation's header on every answer), sends the
     hold-out's lines as a microbatch over ``tcp:`` and checks the touched
     users again, then stops each process with SIGTERM (exit 0, no failure
-    counted in any tier's flight-recorder bundle)."""
-    from chip_smoke import Deployment, deployment_run
+    counted in any tier's flight-recorder bundle). The processes run
+    sanitized by the port's sanitizer, as the smoke runs them: each
+    prints its report at exit, and none may hold a lock-order cycle."""
+    from chip_smoke import Deployment, deployment_run, sanitizer_summary
 
     lines = _loop_lines()
     tp.reset_tcp_clients()
@@ -179,6 +181,12 @@ def test_cli_als_loop_as_processes(tmp_path):
     finally:
         dep.close()
         tp.reset_tcp_clients()
+    # long holds from 1 ms: the processes that report any ran the port's
+    # wrappers (a report's header names its modes)
+    sanitized = sanitizer_summary(dep.sanitizer_reports(), "cli deployment")
+    reporting = {name: p["modes"] for name, p in sanitized["processes"].items()
+                 if name not in sanitized["no_report"]}
+    assert reporting and set(reporting.values()) == {"locks,loop"}, sanitized
     model = dep.local.get_model()
     assert len(model.all_user_ids()) == N_USERS
     gen = out["generation"]

@@ -59,6 +59,8 @@ def _port_sources():
     yield os.path.join(REPO, "profiler_gap.py")
     yield os.path.join(REPO, "netbroker_rpc.py")
     yield os.path.join(REPO, "rdf_seed_spread.py")
+    # the sanitized child chip_smoke.py starts on the card
+    yield os.path.join(REPO, "tests", "torch_sanitize_child.py")
 
 
 def _imported_modules(path, source=None):
@@ -104,6 +106,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             "common/profiling.py"} <= scanned
     assert {"tools/traffic.py", "example/wordcount.py",
             "example/resources.py"} <= scanned
+    assert {"tools/sanitize/__init__.py", "tools/sanitize/locks.py",
+            "tools/sanitize/loop.py",
+            os.path.join("..", "tests", "torch_sanitize_child.py")} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
