@@ -147,6 +147,27 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            bytes gauge; the ``cuda:0`` memory gauges equal to
            ``torch.cuda``'s readings after a synchronise; the blackbox
            bundle's ``memory`` section;
+  analyze  the port's static analyser and the card's sync reporting, right
+           after ``profiling`` (outside the profiler session and every
+           timed call): (a) ``python3 -m oryx_tpu_torch.cli analyze
+           --format json`` on the checkout in a child must exit 0 with zero
+           unsuppressed findings (its seconds, the suppressed counts by
+           checker); (b) three windows of what earlier phases built, each
+           under ``torch.cuda.set_sync_debug_mode("warn")`` (mode 0
+           restored in a ``finally``): one ALS iteration on the train
+           phase's blocked sides, ``kmeans_train`` on the first 100,000 of
+           the sweep's 1M × 64 points (k = 256, 8 iterations) and
+           ``fit_index_centroids`` on them with one reseed round, and a
+           b256 ``top_n_batch`` on the 1M × 50 flagship. Each sync warning
+           is charged to the innermost stack frame under
+           ``oryx_tpu_torch/`` (``traceback.extract_stack`` in a
+           ``warnings.showwarning`` hook); every site must be one the
+           port's transfer recogniser classifies (``dataflow.transfers_at``:
+           a fetch, an upload or an explicit wait on that line), or the
+           phase fails. Printed per window and site: the syncs, the kinds,
+           whether the site is a host-device-transfer finding (reported or
+           suppressed); and the findings in functions the windows ran
+           (``sys.setprofile``) that never synced;
   kmeans_update
            the k-means main path: 100,000 CSV lines of 64 features from
            the planted blobs through ``KMeansUpdate.build_model`` (the
@@ -4554,7 +4575,9 @@ class _Process:
             self.popen = subprocess.Popen(
                 [sys.executable, "-m", "oryx_tpu_torch.cli", *argv],
                 stdout=out, stderr=subprocess.STDOUT, cwd=REPO_ROOT,
-                env=child_env(DEPLOY_SANITIZE_ENV))
+                # faulthandler: a process that dies of a signal writes every
+                # thread's stack to its log before it goes
+                env={**child_env(DEPLOY_SANITIZE_ENV), "PYTHONFAULTHANDLER": "1"})
 
     @property
     def stopped(self) -> bool:
@@ -4734,8 +4757,15 @@ class Deployment:
             self.input.close()
 
     def tails(self) -> str:
-        return "\n".join(f"--- {name} (exit {p.popen.poll()}), last 40 lines:\n{p.tail()}"
-                         for name, p in self.procs.items())
+        """Each process's last lines; those that exited other than 0 come
+        last and longer, so that the end of a failed run's output shows why."""
+        procs = sorted(self.procs.items(),
+                       key=lambda kv: kv[1].popen.poll() not in (0, None))
+        out = []
+        for name, p in procs:
+            n = 40 if p.popen.poll() in (0, None) else 200
+            out.append(f"--- {name} (exit {p.popen.poll()}), last {n} lines:\n{p.tail(n)}")
+        return "\n".join(out)
 
     def sanitizer_reports(self) -> dict:
         """Each process's sanitizer exit report, parsed from its output
@@ -5231,6 +5261,11 @@ def deployment_phase(lines, rng, in_process: dict) -> dict:
         finally:
             dep.close()
         reports = dep.sanitizer_reports()
+        # a thread that outlived its join at close is logged with its stack
+        # (serving/app.py); the count per process is reported, not gated
+        out["threads_left_at_close"] = {
+            name: p.log.read_text(errors="replace").count("did not stop within")
+            for name, p in dep.procs.items()}
         out["sanitized"] = {"env": DEPLOY_SANITIZE_ENV, "loop_stall_ms":
                             dep.conf.get_float("oryx.sanitize.loop-stall-ms")}
     out["sanitizer"] = sanitizer_summary(reports, "deployment")
@@ -5613,6 +5648,192 @@ def kmeans_train_phase(points) -> dict:
     out["point_iters_per_s"] = KM_N * KM_ITERATIONS / timed["seconds"]
     out["sweep_point_iters_per_s"] = KM_N * KM_ITERATIONS / timed["sweeps_s"]
     return out
+
+
+# -- the static analyser ------------------------------------------------------
+
+ANALYZE_KM_N, ANALYZE_TOPN_BATCH, ANALYZE_TOPN_HOW_MANY = 100_000, 256, 10
+ANALYZE_TIMEOUT_S = 300
+#: the text of torch's warning under ``set_sync_debug_mode("warn")``
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def analyzer_run(timeout: float = ANALYZE_TIMEOUT_S) -> dict:
+    """``python3 -m oryx_tpu_torch.cli analyze --format json`` on the
+    checkout, in a child: it must exit 0 with zero unsuppressed findings.
+    Returns the child's seconds, the suppressed counts by checker and the
+    findings (reported and suppressed)."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "oryx_tpu_torch.cli", "analyze", "--format", "json"],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO_ROOT,
+        env=child_env({}))
+    seconds = time.perf_counter() - t0
+    check(done.returncode == 0, f"analyze: the analyser exited "
+          f"{done.returncode}: {done.stdout[-2000:]} {done.stderr[-2000:]}")
+    report = json.loads(done.stdout)
+    check(report["unsuppressed"] == 0 and not report["parse_errors"],
+          f"analyze: {report['unsuppressed']} unsuppressed findings, parse "
+          f"errors {report['parse_errors']}")
+    by_checker: dict = {}
+    for f in report["findings"]:
+        if f["suppressed_by"]:
+            by_checker[f["checker"]] = by_checker.get(f["checker"], 0) + 1
+    return {"rc": done.returncode, "seconds": seconds, "unsuppressed": 0,
+            "suppressed": report["suppressed"],
+            "suppressed_by_checker": dict(sorted(by_checker.items())),
+            "findings": report["findings"]}
+
+
+def sync_windows(windows: dict) -> "tuple[dict, set]":
+    """Each window run once under ``torch.cuda.set_sync_debug_mode("warn")``
+    (mode 0 restored in a ``finally``). Every sync warning is charged to the
+    innermost stack frame under ``oryx_tpu_torch/`` when it is raised (its
+    own location may be in torch's Python code): ``traceback.extract_stack``
+    in a ``warnings.showwarning`` hook, every warning shown (``always``). A
+    sync with no frame in the package is charged to ``outside:<file>:<line>``.
+    Returns ``{window: {"relpath:line": syncs}}`` and the ``(relpath, first
+    line)`` of every port function the windows entered (``sys.setprofile``)."""
+    import traceback
+    import warnings
+
+    pkg = os.path.join(str(REPO_ROOT), "oryx_tpu_torch") + os.sep
+    observed: dict = {}
+    ran: set = set()
+
+    def rel(path: str) -> str:
+        return os.path.relpath(os.path.abspath(path), str(REPO_ROOT))
+
+    def on_call(frame, event, arg):
+        if event == "call":
+            path = os.path.abspath(frame.f_code.co_filename)
+            if path.startswith(pkg):
+                ran.add((rel(path), frame.f_code.co_firstlineno))
+
+    for label, fn in windows.items():
+        sites = observed[label] = {}
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            shown = warnings.showwarning
+
+            def hook(message, category, filename, lineno, file=None, line=None,
+                     _sites=sites, _shown=shown):
+                if SYNC_WARNING not in str(message):
+                    return _shown(message, category, filename, lineno, file, line)
+                frame = next((f for f in reversed(traceback.extract_stack())
+                              if os.path.abspath(f.filename).startswith(pkg)), None)
+                key = (f"{rel(frame.filename)}:{frame.lineno}" if frame is not None
+                       else f"outside:{filename}:{lineno}")
+                _sites[key] = _sites.get(key, 0) + 1
+
+            warnings.showwarning = hook
+            sys.setprofile(on_call)
+            try:
+                torch.cuda.set_sync_debug_mode("warn")
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                sys.setprofile(None)
+        torch.cuda.synchronize()
+    return observed, ran
+
+
+def classify_syncs(observed: dict, ran: set, findings: list) -> "tuple[dict, list]":
+    """Each observed sync site against the port's transfer recogniser
+    (``dataflow.transfers_at``: the transfer calls of the site's line) and
+    against the analyser's host-device-transfer findings. Returns the
+    per-window record and the sites the recogniser does not classify."""
+    from oryx_tpu_torch.tools.analyze import dataflow
+    from oryx_tpu_torch.tools.analyze.core import build_project
+
+    project, errors = build_project([str(REPO_ROOT / "oryx_tpu_torch")],
+                                    root=str(REPO_ROOT))
+    check(not errors, f"analyze: parse errors {errors}")
+    hdt = {f"{f['path']}:{f['line']}": f for f in findings
+           if f["checker"] == "host-device-transfer"}
+    out: dict = {}
+    unrecognised = []
+    seen_sites = set()
+    for label, sites in observed.items():
+        rows = {}
+        for site, n in sorted(sites.items()):
+            relpath, _, line = site.rpartition(":")
+            fctx = project.by_relpath.get(relpath)
+            kinds = (sorted({k for _, k in dataflow.transfers_at(fctx, int(line))})
+                     if fctx is not None else [])
+            if not kinds:
+                unrecognised.append(f"{label}: {site}")
+            finding = hdt.get(site)
+            rows[site] = {"syncs": n, "kinds": kinds,
+                          "finding": (None if finding is None
+                                      else finding["suppressed_by"] or "reported")}
+            seen_sites.add(site)
+        out[label] = {"distinct_sites": len(rows), "syncs": sum(sites.values()),
+                      "sites": rows}
+
+    def enclosing(relpath: str, line: int):
+        fctx = project.by_relpath.get(relpath)
+        best = None
+        for _, fn in (fctx.functions if fctx is not None else ()):
+            if fn.lineno <= line <= (fn.end_lineno or fn.lineno) and (
+                    best is None or fn.lineno > best.lineno):
+                best = fn
+        if best is None:
+            return None
+        return (relpath, min([best.lineno] + [d.lineno for d in best.decorator_list]))
+
+    on_paths = [site for site, f in sorted(hdt.items())
+                if enclosing(f["path"], f["line"]) in ran]
+    return {"windows": out,
+            "observed_findings": sorted(s for s in seen_sites if s in hdt),
+            "findings_on_paths_never_synced": [s for s in on_paths
+                                               if s not in seen_sites],
+            "findings_total": len(hdt)}, unrecognised
+
+
+def analyze_phase(user_side, item_side, y, km_points, flagship, rng) -> dict:
+    """The ``analyze`` line (see the module docstring): the analyser over
+    the checkout, then three windows of what earlier phases built under
+    the card's sync reporting, each sync site held against the
+    recogniser."""
+    t0 = time.perf_counter()
+    analyser = analyzer_run()
+    findings = analyser.pop("findings")
+    pts = km_points[:ANALYZE_KM_N]
+    host_pts = pts.cpu().numpy()
+    queries = rng.standard_normal((ANALYZE_TOPN_BATCH, FEATURES), dtype=np.float32)
+    flagship.y_snapshot()  # the upload is the serving phases', not the window's
+
+    def kmeans():
+        kmtrain.kmeans_train(pts, KM_K, iterations=KM_ITERATIONS, runs=1,
+                             generator=torch.Generator().manual_seed(SEED + 61))
+        kmtrain.fit_index_centroids(host_pts, KM_K, iterations=2, seed=SEED + 67,
+                                    reseed_rounds=1)
+
+    windows = {
+        "als_iteration": iteration_fn(user_side, item_side, y),
+        "kmeans_train": kmeans,
+        "top_n_batch": lambda: flagship.top_n_batch(queries, ANALYZE_TOPN_HOW_MANY),
+    }
+    t1 = time.perf_counter()
+    observed, ran = sync_windows(windows)
+    windows_s = time.perf_counter() - t1
+    syncs, unrecognised = classify_syncs(observed, ran, findings)
+    check(not unrecognised, "analyze: syncs the card reported at sites the "
+          f"transfer recogniser does not classify: {unrecognised}")
+    return {"analyser": analyser, "syncs": syncs, "windows_s": windows_s,
+            "seconds": time.perf_counter() - t0,
+            "windows": {"als_iteration": "one iteration (both halves) on the "
+                                         "train phase's blocked sides",
+                        "kmeans_train": f"kmeans_train at {ANALYZE_KM_N:,} x "
+                                        f"{KM_D}, k = {KM_K}, {KM_ITERATIONS} "
+                                        "iterations; fit_index_centroids on "
+                                        "the same points, 2 iterations, one "
+                                        "reseed round",
+                        "top_n_batch": f"b{ANALYZE_TOPN_BATCH} top_n_batch on "
+                                       f"the {FLAGSHIP_ITEMS:,} x {FEATURES} "
+                                       "flagship"}}
 
 
 # -- the device mesh ----------------------------------------------------------
@@ -6539,12 +6760,17 @@ def main() -> int:
     emit("profile", **profiles["als_iteration"])
     prof = profiling_phase(prof_port, busy, profiles, user_side, item_side,
                            batch.nnz, prof_flagship, np.random.default_rng(SEED + 47))
+    # the static analyser, and three windows under the card's sync
+    # reporting, after the profiler session and outside every timed call
+    analyze = analyze_phase(user_side, item_side, y, km_points, prof_flagship,
+                            np.random.default_rng(SEED + 61))
     del prof_flagship
     prof.update(close_layer(prof_layer, prof_port, "profiling", prof_threads))
     emit("profiling", **prof, gpu=smi, reduced={
         "flagship": "none: the 1,000,000 x 50 flagship at batch 256",
         "window": f"the rate gauges' window cut from 60 s to {PROFILING_WINDOW_S} s "
                   "while the scans are timed, so the gauges read the scan alone"})
+    emit("analyze", **analyze, gpu=smi)
     record["profile"] = sweep_profile(profiles["1M x 64"], "1M x 64")
     record["update_shape"]["profile"] = sweep_profile(profiles["100k x 64"],
                                                       "100k x 64")

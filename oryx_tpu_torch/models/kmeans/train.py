@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.common import rand
-from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.common.device import resolve, to_host
 from oryx_tpu_torch.ops import kernels as K
 from oryx_tpu_torch.parallel.mesh import ShardedRows, replicated
 
@@ -191,9 +191,8 @@ def kmeans_train(points, k: int, iterations: int = 30, runs: int = 1,
         timings.update(clock)
     costs = torch.stack([r[2] for r in results])
     best = int(torch.argmin(costs))  # the first on a tie
-    centers, counts = results[best][0], results[best][1]
-    return (centers.cpu().numpy().astype(np.float64),
-            counts.cpu().numpy().astype(np.int64))
+    centers, counts = to_host(results[best][0], results[best][1])
+    return centers.astype(np.float64), counts.astype(np.int64)
 
 
 # -- the IVF index's fit (plain torch, no kernel) ------------------------------
@@ -249,13 +248,13 @@ def fit_index_centroids(points, k: int, iterations: int = 20, seed: int = 0,
     centers = _init_centers(g, pts, k, INIT_KMEANS_PARALLEL)
     centers, counts, assign = _lloyd_from(pts, centers, int(iterations))
     for _ in range(max(0, int(reseed_rounds))):
-        counts_np = counts.cpu().numpy()
+        # one synchronisation a round for the three reads
+        counts_np, centers_np, assign_np = to_host(counts, centers, assign)
         if (counts_np > 0).all():
             break
-        patched = _reseed_empty(host, centers.cpu().numpy(), counts_np,
-                                assign.cpu().numpy())
+        patched = _reseed_empty(host, centers_np, counts_np, assign_np)
         centers, counts, assign = _lloyd_from(
             pts, torch.as_tensor(patched, device=dev), 2)
-    return (centers.cpu().numpy().astype(np.float32),
-            counts.cpu().numpy().astype(np.int64),
-            assign.cpu().numpy().astype(np.int32))
+    centers, counts, assign = to_host(centers, counts, assign)
+    return (centers.astype(np.float32), counts.astype(np.int64),
+            assign.astype(np.int32))

@@ -59,7 +59,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from oryx_tpu_torch.common.device import resolve
+from oryx_tpu_torch.common.device import resolve, to_host
 
 log = logging.getLogger(__name__)
 
@@ -509,7 +509,7 @@ def grow_tree(
         )
         # ONE device-to-host read per level: the split decision is host
         # control flow by design (level-wise growth)
-        host = packed.cpu().numpy()
+        (host,) = to_host(packed)
         clock["host_syncs"] += 1
         clock["levels"] += 1
         c = host.shape[1] - 4 - n_bins

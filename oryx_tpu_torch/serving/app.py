@@ -42,8 +42,10 @@ import os
 import re
 import secrets
 import ssl
+import sys
 import threading
 import time
+import traceback
 
 import torch
 from aiohttp import web
@@ -802,6 +804,19 @@ class _BatchWarmer(threading.Thread):
         return True
 
 
+def _warn_if_alive(thread: threading.Thread, waited_s: float) -> None:
+    """Log a thread that outlived its join in :meth:`ServingLayer.close`,
+    with the stack it is blocked in: a daemon thread still running when the
+    interpreter finalizes can take the process down with it, and the stack
+    is the one clue to why it did not stop."""
+    if not thread.is_alive():
+        return
+    frame = sys._current_frames().get(thread.ident)
+    stack = "".join(traceback.format_stack(frame)) if frame is not None else "?"
+    log.warning("%s did not stop within %gs; blocked in:\n%s", thread.name,
+                waited_s, stack)
+
+
 class ServingLayer:
     """Lifecycle: model manager + update consumer + HTTP server
     (ServingLayer.start/await/close:121-178, ModelManagerListener:102-145).
@@ -1111,11 +1126,13 @@ class ServingLayer:
             self._loop.call_soon_threadsafe(self._loop.stop)
         if self._server_thread is not None and self._server_thread is not threading.current_thread():
             self._server_thread.join(timeout=10)
+            _warn_if_alive(self._server_thread, 10)
         if (
             self._consumer_thread is not None
             and self._consumer_thread is not threading.current_thread()
         ):
             self._consumer_thread.join(timeout=5)
+            _warn_if_alive(self._consumer_thread, 5)
         # this layer armed the process-global warmup state at start; a
         # closed layer must not keep gating /readyz of whatever serves
         # next in this process (an armed-but-dead state read "cold"

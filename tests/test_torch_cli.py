@@ -10,7 +10,8 @@ own harness: the replica's ``/recommend`` answers equal an in-test
 manager's fed from the same update topic, and a microbatch reaches them.
 Then the port's own rules: the layer commands refuse to start without a
 card unless ``cpu`` is asked for, before any topic, thread or socket;
-``analyze`` exits 2 (``fleet-status`` is held to the reference by
+``analyze`` runs the port's analyser clean and exits 2 for its unported
+modes (``fleet-status`` is held to the reference by
 ``tests/test_torch_federation.py``); the single-host half of
 ``parallel.distributed``; the shutdown hook of ``common.lockutils``.
 
@@ -267,9 +268,20 @@ def test_default_compute_platform_reaches_every_tier():
 
 @pytest.mark.parametrize("command,message", [("analyze", "item 7")])
 def test_cli_unported_commands_exit_2(command, message):
-    done = _run(command, "--replicas", "127.0.0.1:1", timeout=60)
+    """``analyze`` itself is ported: over the port it exits 0 with zero
+    unsuppressed findings and prints the reference's JSON report keys. Its
+    unported modes (``--cost``, ``--protocol``) still exit 2 with a message
+    naming the ROADMAP item that ports them."""
+    done = _run(command, "--cost", timeout=60)
     assert done.returncode == 2
     assert "not ported yet" in done.stderr and message in done.stderr
+    done = _run(command, "--format", "json", timeout=120)
+    assert done.returncode == 0, done.stderr
+    report = json.loads(done.stdout)
+    assert set(report) == {"findings", "counts", "total", "unsuppressed",
+                           "suppressed", "parse_errors"}
+    assert report["unsuppressed"] == 0 and report["suppressed"] >= 1
+    assert report["parse_errors"] == []
 
 
 def test_distributed_is_single_host_only():
@@ -320,6 +332,33 @@ def test_close_at_shutdown_closes_in_reverse_order(mod, monkeypatch):
     mod._run_shutdown_hook()
     mod._run_shutdown_hook()
     assert log == ["c", "bad", "a"]
+
+
+_HALT_CHILD = """
+import atexit, sys, threading, torch
+from oryx_tpu_torch.cli.main import run
+a = torch.randn(600, 600)
+def spin():
+    while True:
+        a @ a
+for _ in range(2):
+    threading.Thread(target=spin, daemon=True).start()
+atexit.register(lambda: print("exit handlers ran", flush=True))
+run(["config-dump"])
+"""
+
+
+def test_cli_process_exits_cleanly_with_daemon_threads_inside_torch():
+    """``python -m oryx_tpu_torch.cli`` ends through ``run``: with daemon
+    threads busy inside torch's native code (as a layer's dumper or
+    consumer may be when it stops), the process still exits 0 with its
+    output flushed and its exit handlers run. Interpreter finalization,
+    which ``run`` skips, ends such threads by unwinding them through C++
+    frames, and CPython 3.12 then aborts the process (SIGABRT)."""
+    done = subprocess.run([sys.executable, "-c", _HALT_CHILD], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert "oryx.id=" in done.stdout and done.stdout.endswith("exit handlers ran\n")
 
 
 def test_layer_process_dumps_its_launch_counter_on_sigterm(tmp_path):

@@ -1358,3 +1358,42 @@ def test_staged_swap_on_the_card_promotes_and_answers_as_a_fresh_model(
     for g, w in zip(got, want):
         assert [i for i, _ in g] == [i for i, _ in w]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=1e-5)
+
+
+# -- the batched fetch the analyser exempts -------------------------------------
+
+
+@pytest.mark.cuda
+def test_to_host_on_the_card_gives_cpu_numpy_bits_with_one_sync(cuda_device):
+    """``common/device.to_host`` of several card tensors (and a CPU one)
+    returns what ``.cpu().numpy()`` returns, dtype and bits, and under
+    ``set_sync_debug_mode("warn")`` the card reports one synchronisation
+    for the whole call (``.cpu()`` per tensor reports one each)."""
+    import warnings
+
+    from oryx_tpu_torch.common.device import to_host
+
+    g = torch.Generator(device=cuda_device).manual_seed(SEED)
+    ts = [torch.randn((1000, 50), generator=g, device=cuda_device),
+          torch.randint(0, 9, (77,), generator=g, device=cuda_device),
+          torch.randn((3,), generator=g, device=cuda_device).to(torch.bfloat16)
+          .float(), torch.arange(5)]
+    want = [t.cpu().numpy() for t in ts]
+    torch.cuda.synchronize()
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchronizing" in str(w.message) for w in seen)
+
+    got, n = syncs(lambda: to_host(*ts))
+    _, n_cpu = syncs(lambda: [t.cpu().numpy() for t in ts[:3]])
+    assert n == 1 and n_cpu == 3, (n, n_cpu)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)

@@ -109,6 +109,17 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"tools/sanitize/__init__.py", "tools/sanitize/locks.py",
             "tools/sanitize/loop.py",
             os.path.join("..", "tests", "torch_sanitize_child.py")} <= scanned
+    assert {"tools/analyze/__init__.py", "tools/analyze/core.py",
+            "tools/analyze/cli.py", "tools/analyze/sarif.py",
+            "tools/analyze/dataflow.py", "tools/analyze/checkers/__init__.py",
+            "tools/analyze/checkers/blocking.py",
+            "tools/analyze/checkers/locks.py",
+            "tools/analyze/checkers/concurrency.py",
+            "tools/analyze/checkers/confkeys.py",
+            "tools/analyze/checkers/logstyle.py",
+            "tools/analyze/checkers/swallowed.py",
+            "tools/analyze/checkers/perrowstore.py",
+            "tools/analyze/checkers/hosttransfer.py"} <= scanned
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
