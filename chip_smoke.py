@@ -152,7 +152,19 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            timed call): (a) ``python3 -m oryx_tpu_torch.cli analyze
            --format json`` on the checkout in a child must exit 0 with zero
            unsuppressed findings (its seconds, the suppressed counts by
-           checker); (b) three windows of what earlier phases built, each
+           checker); then ``analyze --protocol --format json`` in a child
+           must exit 0 with the three protocol models clean and complete
+           at the tier-1 depth and the reference explorer's states and
+           transitions (``PROTOCOL_COUNTS``; each model's seconds
+           printed), and each of the six fixtures under
+           ``tests/data/protocol_schedules/`` must replay with
+           ``--schedule`` (exit 0); then ``analyze --cost --format json
+           --bind ...`` in a child, at the b256 scan over the 1M × 50
+           flagship and ``y`` bound to the train phase's Y: ``_score``'s
+           static FLOPs must equal ``scan_flops`` (the serving phase's
+           analytic FLOPs of the same call) and the collective bytes
+           priced for ``solve_side_sharded`` must equal the bytes of Y on
+           the card (both printed); (b) three windows of what earlier phases built, each
            under ``torch.cuda.set_sync_debug_mode("warn")`` (mode 0
            restored in a ``finally``): one ALS iteration on the train
            phase's blocked sides, ``kmeans_train`` on the first 100,000 of
@@ -1808,6 +1820,12 @@ def host_top_n_s(model, qs, reps: int) -> float:
     return float(np.median(times))
 
 
+def scan_flops(batch: int, n: int, k: int) -> float:
+    """The FLOPs of one scoring product of a serving scan: ``batch``
+    queries against ``n`` rows of ``k`` features."""
+    return 2.0 * batch * n * k
+
+
 def scan_program(name: str, fn, nbytes: float, flops: float, f32: dict,
                  dtype=torch.float32) -> dict:
     """One device program of a serving scan timed by CUDA events (``INNER``
@@ -1948,7 +1966,7 @@ def flat_representations(flagship, y, ids, rng) -> dict:
         qs = torch.as_tensor(qs_host, device=dev)
         top = 16  # top_n_batch's k at how_many = 10
         r = serving_mod._round_up_pow2(max(int(4.0 * 10), 16))  # rescore width
-        flops = 2.0 * b * n * k
+        flops = scan_flops(b, n, k)
         base = f32_flat_scan(f32.mat, qs, top)
         programs.append({"batch": b, "r": r, **scan_program(
             "int8 scan", lambda: serving_mod._quant_candidates(q8, qs, r),
@@ -5685,6 +5703,119 @@ def analyzer_run(timeout: float = ANALYZE_TIMEOUT_S) -> dict:
             "findings": report["findings"]}
 
 
+#: The reference explorer's counts at the tier-1 depth (12, crash budget
+#: 2), ``python -m oryx_tpu.cli analyze --protocol`` on the reference
+#: package: (states, transitions). The port's explorer must equal them.
+PROTOCOL_COUNTS = {"consumer-group": (118_213, 248_199),
+                   "broker-append": (1_057, 1_143),
+                   "ckpt-generation": (59, 100)}
+PROTOCOL_DEPTH, PROTOCOL_CRASH_BUDGET = 12, 2
+PROTOCOL_TIMEOUT_S = 600
+#: The committed counterexample fixtures ``--schedule`` replays.
+PROTOCOL_FIXTURES = os.path.join("tests", "data", "protocol_schedules")
+#: ``analyze --cost``'s shapes: the b256 scan over the 1M x 50 flagship
+#: (``_score(qs, mat)``), and ``y`` bound to the train phase's Y.
+COST_SCAN_BATCH = 256
+
+
+def analyze_child(args: "list[str]", timeout: float) -> "tuple[subprocess.CompletedProcess, float]":
+    """``python3 -m oryx_tpu_torch.cli analyze <args>`` on the checkout in
+    a child, with its seconds."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "oryx_tpu_torch.cli", "analyze", *args],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO_ROOT,
+        env=child_env({}))
+    return done, time.perf_counter() - t0
+
+
+def protocol_run(timeout: float = PROTOCOL_TIMEOUT_S) -> dict:
+    """``analyze --protocol --format json``: every model explored clean
+    and complete at the tier-1 depth with the reference's states and
+    transitions (:data:`PROTOCOL_COUNTS`); then each fixture under
+    :data:`PROTOCOL_FIXTURES` replayed with ``--schedule`` (its variant
+    and, where the fixture says, HEAD), each exiting 0."""
+    done, seconds = analyze_child(["--protocol", "--format", "json"], timeout)
+    check(done.returncode == 0, f"analyze --protocol exited {done.returncode}: "
+          f"{done.stdout[-2000:]} {done.stderr[-2000:]}")
+    report = json.loads(done.stdout)
+    check(report["ok"], f"analyze --protocol: not ok: {report}")
+    models = {}
+    for entry in report["protocol"]:
+        name = entry["model"]
+        got = (entry["states"], entry["transitions"])
+        check(entry["ok"] and entry["complete"] and entry["variant"] is None
+              and entry["depth"] == PROTOCOL_DEPTH
+              and entry["crash_budget"] == PROTOCOL_CRASH_BUDGET,
+              f"analyze --protocol {name}: {entry}")
+        check(got == PROTOCOL_COUNTS.get(name),
+              f"analyze --protocol {name}: {got[0]} states, {got[1]} "
+              f"transitions; the reference explores {PROTOCOL_COUNTS.get(name)}")
+        models[name] = {"states": got[0], "transitions": got[1],
+                        "seconds": entry["elapsed_s"]}
+    check(set(models) == set(PROTOCOL_COUNTS),
+          f"analyze --protocol explored {sorted(models)}")
+    replays = {}
+    fixtures = sorted(f for f in os.listdir(os.path.join(REPO_ROOT, PROTOCOL_FIXTURES))
+                      if f.endswith(".json"))
+    check(len(fixtures) == 6, f"analyze --schedule: fixtures {fixtures}")
+    for f in fixtures:
+        rdone, rseconds = analyze_child(
+            ["--protocol", "--format", "json", "--schedule",
+             os.path.join(PROTOCOL_FIXTURES, f)], 120)
+        check(rdone.returncode == 0, f"analyze --schedule {f} exited "
+              f"{rdone.returncode}: {rdone.stdout[-2000:]} {rdone.stderr[-2000:]}")
+        runs = json.loads(rdone.stdout)["replay"]["runs"]
+        check(runs and all(r["ok"] for r in runs), f"analyze --schedule {f}: {runs}")
+        replays[f] = {"runs": {r["against"]: r["status"] for r in runs},
+                      "seconds": rseconds}
+    return {"rc": done.returncode, "seconds": seconds, "models": models,
+            "depth": PROTOCOL_DEPTH, "crash_budget": PROTOCOL_CRASH_BUDGET,
+            "replays": replays}
+
+
+def cost_run(y: torch.Tensor, timeout: float = ANALYZE_TIMEOUT_S) -> dict:
+    """``analyze --cost --format json --bind ...`` at the smoke's shapes:
+    the static FLOPs of ``serving._score`` at the b256 scan over the
+    flagship must equal :func:`scan_flops` (the serving phase's analytic
+    FLOPs of the same call), and the collective bytes priced for
+    ``train.solve_side_sharded`` must equal the bytes of ``y`` (the train
+    phase's Y on the card), the copy ``replicated(full, devices)`` makes
+    per shard."""
+    bindings = {"qs.d0": COST_SCAN_BATCH, "qs.d1": FEATURES,
+                "mat.d0": FLAGSHIP_ITEMS, "mat.d1": FEATURES,
+                "y.d0": y.shape[0], "y.d1": y.shape[1]}
+    done, seconds = analyze_child(
+        ["--cost", "--format", "json", "--bind",
+         ",".join(f"{s}={v}" for s, v in bindings.items())], timeout)
+    check(done.returncode == 0, f"analyze --cost exited {done.returncode}: "
+          f"{done.stdout[-2000:]} {done.stderr[-2000:]}")
+    progs = {p["program"]: p for p in json.loads(done.stdout)["programs"]}
+    score = progs.get("oryx_tpu_torch.models.als.serving._score")
+    sharded = progs.get("oryx_tpu_torch.models.als.train.solve_side_sharded")
+    check(score is not None and sharded is not None,
+          f"analyze --cost: programs {sorted(progs)}")
+    want_flops = scan_flops(COST_SCAN_BATCH, FLAGSHIP_ITEMS, FEATURES)
+    want_bytes = y.numel() * y.element_size()
+    check(score["flops"]["value"] == want_flops,
+          f"analyze --cost: _score's static FLOPs {score['flops']} at b"
+          f"{COST_SCAN_BATCH} x {FLAGSHIP_ITEMS:,} x {FEATURES}, the "
+          f"smoke's {want_flops}")
+    check(sharded["collective_bytes"]["value"] == want_bytes,
+          f"analyze --cost: solve_side_sharded's collective bytes "
+          f"{sharded['collective_bytes']}, the train phase's Y is {want_bytes} B")
+    return {"rc": done.returncode, "seconds": seconds, "programs": len(progs),
+            "bindings": bindings,
+            "score_flops": {"static": score["flops"]["value"],
+                            "expr": score["flops"]["expr"],
+                            "smoke": want_flops},
+            "sharded_collective_bytes": {
+                "static": sharded["collective_bytes"]["value"],
+                "expr": sharded["collective_bytes"]["expr"],
+                "y_bytes": want_bytes, "y_shape": list(y.shape),
+                "y_dtype": str(y.dtype)}}
+
+
 def sync_windows(windows: dict) -> "tuple[dict, set]":
     """Each window run once under ``torch.cuda.set_sync_debug_mode("warn")``
     (mode 0 restored in a ``finally``). Every sync warning is charged to the
@@ -5800,6 +5931,8 @@ def analyze_phase(user_side, item_side, y, km_points, flagship, rng) -> dict:
     t0 = time.perf_counter()
     analyser = analyzer_run()
     findings = analyser.pop("findings")
+    protocol = protocol_run()
+    cost = cost_run(y)
     pts = km_points[:ANALYZE_KM_N]
     host_pts = pts.cpu().numpy()
     queries = rng.standard_normal((ANALYZE_TOPN_BATCH, FEATURES), dtype=np.float32)
@@ -5822,7 +5955,8 @@ def analyze_phase(user_side, item_side, y, km_points, flagship, rng) -> dict:
     syncs, unrecognised = classify_syncs(observed, ran, findings)
     check(not unrecognised, "analyze: syncs the card reported at sites the "
           f"transfer recogniser does not classify: {unrecognised}")
-    return {"analyser": analyser, "syncs": syncs, "windows_s": windows_s,
+    return {"analyser": analyser, "protocol": protocol, "cost": cost,
+            "syncs": syncs, "windows_s": windows_s,
             "seconds": time.perf_counter() - t0,
             "windows": {"als_iteration": "one iteration (both halves) on the "
                                          "train phase's blocked sides",

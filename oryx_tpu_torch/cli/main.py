@@ -16,10 +16,9 @@ The port of the JAX package's ``oryx_tpu/cli/main.py`` (which is unchanged:
     is no ``JAX_PLATFORMS`` block.
   * ``analyze`` runs the port's static analyser
     (:mod:`oryx_tpu_torch.tools.analyze`) over ``oryx_tpu_torch/`` against
-    ``conf/analyze-baseline-torch.json``; its ``--cost``, ``--bind`` and
-    ``--protocol`` modes are not ported and exit 2 naming ROADMAP Queue 1
-    item 7d's third part. ``ORYX_SANITIZE=locks,loop`` sanitizes every
-    command.
+    ``conf/analyze-baseline-torch.json``, with the reference's ``--cost``
+    / ``--bind`` and ``--protocol`` modes (``--cost`` without the Pallas
+    kernel rows). ``ORYX_SANITIZE=locks,loop`` sanitizes every command.
   * ``broker``, the topic tools and ``fleet-status`` import no torch:
     they are pure transport or pure HTTP, as in the reference.
   * ``python -m oryx_tpu_torch.cli`` ends its process through

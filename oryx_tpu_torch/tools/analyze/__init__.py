@@ -25,11 +25,18 @@ under the reference's ids:
                              ``.cpu()``, ``.tolist()``, ``float(t)``, ...)
                              reachable from async handlers, inside trainer
                              loops, or per element
+  * ``replicated-collective`` — a model-scaled table copied whole to every
+                             shard (``parallel.mesh.replicated``)
+  * ``dtype-widening``     — int8/bf16 tensors silently mixed with float32
+                             on the device
+  * ``protocol-model-drift`` — the protocol models' site annotations
+                             against the port's transport and runtime
 
-Not ported: the jit/Pallas checkers (the port has no JAX tracing and no
-Pallas sources), and, for a later slice, dtype-widening,
-replicated-collective, ``--cost`` and the protocol models (``--protocol``,
-protocol-model-drift); ROADMAP Queue 1, item 7d.
+plus ``analyze --cost`` (the static roofline of every function holding a
+torch contraction or a per-shard region) and ``analyze --protocol`` (the
+explicit-state model checker of ``protocol/``). Not ported: the jit and
+Pallas checkers and ``--cost``'s Pallas kernel rows (the port has no JAX
+tracing and no Pallas sources).
 
 Run it as ``python -m oryx_tpu_torch.cli analyze [--format
 json|text|sarif]``; suppress a finding inline with ``# analyze:

@@ -6,8 +6,7 @@ reference's ids and versions (a port baseline entry reads like a
 reference one). Not ported, because they check JAX tracing or Pallas
 sources and the port has neither: jit-recompile, tracer-leak,
 compile-on-hot-path, float64-promotion and the five Pallas kernel
-checkers. Waiting for their own slice (ROADMAP Queue 1, item 7d):
-replicated-collective, dtype-widening and protocol-model-drift.
+checkers. The reference's report order is kept for the rest.
 """
 
 from oryx_tpu_torch.tools.analyze.checkers.blocking import BlockingAsyncChecker
@@ -21,7 +20,10 @@ from oryx_tpu_torch.tools.analyze.checkers.confkeys import ConfigKeyDriftChecker
 from oryx_tpu_torch.tools.analyze.checkers.logstyle import LogDisciplineChecker
 from oryx_tpu_torch.tools.analyze.checkers.swallowed import SwallowedExceptionChecker
 from oryx_tpu_torch.tools.analyze.checkers.perrowstore import PerRowNdarrayStoreChecker
+from oryx_tpu_torch.tools.analyze.checkers.replicated import ReplicatedCollectiveChecker
 from oryx_tpu_torch.tools.analyze.checkers.hosttransfer import HostDeviceTransferChecker
+from oryx_tpu_torch.tools.analyze.checkers.dtypewidth import DtypeWideningChecker
+from oryx_tpu_torch.tools.analyze.checkers.protocolmodel import ProtocolModelDriftChecker
 
 ALL_CHECKERS = (
     BlockingAsyncChecker(),
@@ -33,7 +35,10 @@ ALL_CHECKERS = (
     LogDisciplineChecker(),
     SwallowedExceptionChecker(),
     PerRowNdarrayStoreChecker(),
+    ReplicatedCollectiveChecker(),
     HostDeviceTransferChecker(),
+    DtypeWideningChecker(),
+    ProtocolModelDriftChecker(),
 )
 
 #: checker id -> precision version, recorded per baseline entry so a

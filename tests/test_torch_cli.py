@@ -10,8 +10,8 @@ own harness: the replica's ``/recommend`` answers equal an in-test
 manager's fed from the same update topic, and a microbatch reaches them.
 Then the port's own rules: the layer commands refuse to start without a
 card unless ``cpu`` is asked for, before any topic, thread or socket;
-``analyze`` runs the port's analyser clean and exits 2 for its unported
-modes (``fleet-status`` is held to the reference by
+``analyze`` runs the port's analyser clean and prices ``--cost``'s
+programs (``fleet-status`` is held to the reference by
 ``tests/test_torch_federation.py``); the single-host half of
 ``parallel.distributed``; the shutdown hook of ``common.lockutils``.
 
@@ -266,15 +266,20 @@ def test_default_compute_platform_reaches_every_tier():
                        "batch")
 
 
-@pytest.mark.parametrize("command,message", [("analyze", "item 7")])
+@pytest.mark.parametrize("command,message", [("analyze", "solve_side_sharded")])
 def test_cli_unported_commands_exit_2(command, message):
-    """``analyze`` itself is ported: over the port it exits 0 with zero
-    unsuppressed findings and prints the reference's JSON report keys. Its
-    unported modes (``--cost``, ``--protocol``) still exit 2 with a message
-    naming the ROADMAP item that ports them."""
-    done = _run(command, "--cost", timeout=60)
-    assert done.returncode == 2
-    assert "not ported yet" in done.stderr and message in done.stderr
+    """``analyze`` is ported whole: over the port it exits 0 with zero
+    unsuppressed findings and prints the reference's JSON report keys, and
+    its ``--cost`` mode exits 0 with the JSON ``programs`` table (the ALS
+    half-iteration's replicated factor among them). The one mode that
+    still exits 2 is a flag the reference refuses too."""
+    done = _run(command, "--cost", "--format", "json", timeout=120)
+    assert done.returncode == 0, done.stderr
+    table = json.loads(done.stdout)
+    assert set(table) == {"programs", "bindings", "parse_errors"}
+    assert any(p["program"].endswith(message) for p in table["programs"])
+    done = _run(command, "--cost", "--changed", timeout=60)
+    assert done.returncode == 2 and "does not combine" in done.stderr
     done = _run(command, "--format", "json", timeout=120)
     assert done.returncode == 0, done.stderr
     report = json.loads(done.stdout)

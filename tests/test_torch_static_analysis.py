@@ -12,11 +12,13 @@
   tracer-leak, compile-on-hot-path and float64-promotion cases (those
   checkers are not ported); the three suppression cases, which seed a
   jit-recompile finding, and the registered-version case, which names
-  unported dataflow checkers, are restated below on ported checkers.
+  the unported jit and Pallas checkers, are restated below on ported
+  checkers.
 * The port's own gates: ``oryx_tpu_torch/`` at zero unsuppressed findings
   against ``conf/analyze-baseline-torch.json``, every suppression
   justified, every port checker with a registered version, the CLI's
-  unported flags.
+  ``--cost`` / ``--protocol`` modes and the reference's guards on their
+  flags.
 * The host-device-transfer cases of ``tests/test_dataflow_analysis.py`` in
   their torch form, and the torch recogniser's own cases (fetches, casts,
   uploads, waits, the exempt ``device.to_host``). The reference's
@@ -95,6 +97,7 @@ def _mirror(ref_test: str, swap: dict) -> dict:
         if isinstance(fn, types.FunctionType) and fn.__module__ == module.__name__:
             rebound = types.FunctionType(fn.__code__, ns, name, fn.__defaults__,
                                          fn.__closure__)
+            rebound.__kwdefaults__ = fn.__kwdefaults__
             rebound.__dict__.update(fn.__dict__)
             ns[name] = rebound
     return ns
@@ -275,7 +278,8 @@ def test_every_checker_has_a_registered_version():
         "blocking-async", "lock-discipline", "lock-order-cycle",
         "blocking-under-lock", "shared-state-escape", "config-key-drift",
         "log-discipline", "swallowed-exception", "per-row-ndarray-store",
-        "host-device-transfer"}
+        "host-device-transfer", "replicated-collective", "dtype-widening",
+        "protocol-model-drift"}
     assert all(REF_VERSIONS[cid] == v for cid, v in CHECKER_VERSIONS.items())
 
 
@@ -314,14 +318,34 @@ def test_analyser_imports_neither_jax_nor_the_reference():
     assert done.stderr.strip().splitlines()[-1] == "[]"
 
 
+#: Each flag the port's CLI once refused: its mode working now, or the
+#: reference's own guard refusing it out of its mode.
+_PORTED_MODES = {
+    "--cost": (["--cost", "--format", "json"], 0, '"programs"'),
+    "--bind=k=50": (["--bind=k=50"], 2, "--bind only applies to --cost"),
+    "--protocol": (["--protocol", "--model", "ckpt-generation"], 0,
+                   "ckpt-generation  variant=HEAD"),
+    "--model=broker-append": (["--model=broker-append"], 2,
+                              "--model only applies to --protocol"),
+    "--schedule=x.json": (["--schedule=x.json"], 2,
+                          "--schedule only applies to --protocol"),
+}
+
+
 @pytest.mark.parametrize("flag", ["--cost", "--bind=k=50", "--protocol",
                                   "--model=broker-append", "--schedule=x.json"])
 def test_cli_unported_modes_exit_2_naming_the_roadmap_item(flag, capsys):
+    """The modes the port's CLI once answered with exit 2 are ported
+    (ROADMAP item 7d): ``--cost`` and ``--protocol`` run, and the flags
+    that belong to a mode are refused outside it, as the reference's CLI
+    refuses them."""
     from oryx_tpu_torch.tools.analyze import cli
 
-    assert cli.main([flag]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 7d" in err
+    argv, rc, text = _PORTED_MODES[flag]
+    assert cli.main(argv) == rc
+    out = capsys.readouterr()
+    assert text in (out.out if rc == 0 else out.err)
+    assert "not ported yet" not in out.err
 
 
 def test_cli_sarif_over_the_port_parses(capsys):
@@ -804,6 +828,18 @@ def test_smoke_analyze_phase_on_the_cpu(monkeypatch):
                             KM_K=8, KM_ITERATIONS=2, ANALYZE_KM_N=400,
                             ANALYZE_TOPN_BATCH=4, FLAGSHIP_ITEMS=500).items():
         monkeypatch.setattr(cs, name, value)
+    # the protocol child explores only ckpt-generation here (at the tier-1
+    # depth, with the reference's counts): consumer-group at depth 12 is
+    # explored by tests/test_torch_protocol_model.py and by the smoke itself
+    ckpt = {"ckpt-generation": cs.PROTOCOL_COUNTS["ckpt-generation"]}
+    monkeypatch.setattr(cs, "PROTOCOL_COUNTS", ckpt)
+    child = cs.analyze_child
+
+    def one_model_child(args, timeout):
+        if args[0] == "--protocol" and "--schedule" not in args:
+            args = [*args, "--model", "ckpt-generation"]
+        return child(args, timeout)
+    monkeypatch.setattr(cs, "analyze_child", one_model_child)
     rng = np.random.default_rng(cs.SEED)
     batch = als_data.prepare(cs.synthetic_lines(rng), implicit=True)
     user_side, item_side = tr.prepare_blocked(batch, 8, device="cpu")
@@ -819,6 +855,18 @@ def test_smoke_analyze_phase_on_the_cpu(monkeypatch):
     analyser = out["analyser"]
     assert analyser["rc"] == 0 and analyser["unsuppressed"] == 0
     assert analyser["suppressed_by_checker"]["config-key-drift"] == 13
+    assert analyser["suppressed_by_checker"]["replicated-collective"] == 1
+    # the protocol child: the reference's counts, the six fixtures replayed
+    protocol = out["protocol"]
+    assert {m: (r["states"], r["transitions"])
+            for m, r in protocol["models"].items()} == {"ckpt-generation": (59, 100)}
+    assert protocol["depth"] == 12 and protocol["crash_budget"] == 2
+    assert len(protocol["replays"]) == 6
+    # the cost child at the rehearsal's shapes: the smoke's own numbers
+    cost = out["cost"]
+    assert cost["score_flops"]["static"] == cs.scan_flops(256, 500, 8) == 2.0 * 256 * 500 * 8
+    assert cost["sharded_collective_bytes"]["static"] == y.numel() * 4
+    assert cost["sharded_collective_bytes"]["expr"] == "4·y.d0·y.d1"
     windows = out["syncs"]["windows"]
     assert set(windows) == {"als_iteration", "kmeans_train", "top_n_batch"}
     # kmeans_train's argmin; the batched reads through device.to_host
