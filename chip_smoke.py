@@ -362,6 +362,34 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``UP``s: 1,000 ``/assign`` and ``/distanceToNearest`` against
            ``nearest_cluster``, 100 lines through ``POST /add`` onto its
            input topic) and is printed in this line as ``kmeans``.
+  chaos    ``tests/test_chaos.py``'s drill on the card, inside the loop
+           after ``serving_http`` (no training): the loop's update stream
+           bulk-loaded into a ``FileBroker`` directory served by an
+           in-process ``tcp:`` ``NetBrokerServer``, and a ``ServingLayer``
+           on the card replaying it with the reference test pair's
+           resilience settings (a breaker of threshold 2 and 0.3 s reset,
+           fast retries and consumer restarts). 20 seeded users' coalesced
+           ``/recommend`` answers are held against the loop's model, then
+           under ``faults`` schedules: (a) ``serving.device_call=fail:2``:
+           the two requests answered by the per-request fallback, the
+           breaker's gauge open, a request during it degraded, the breaker
+           closed again within 10 s, its open, half-open and closed
+           transitions counted, every answer equal to the coalesced one;
+           (b) a second app over the same manager (queue depth 1, one call
+           in flight, ``latency:400``): a 12-way burst sheds with
+           ``Retry-After``, the shed counter equals the 503s, every
+           accepted answer checked; (c) a third (``request-timeout-sec``
+           0.15, ``latency:2000``): a 504 whose ``trace_id`` ``/trace``
+           returns; (d) the broker closed (close-to-refused seconds),
+           ``serving.update_consume=fail:1``, at least 2 consumer restarts
+           with every answer 200 and checked, the broker back on its port
+           over its directory, one ``UP`` of a new item applied within 30 s
+           (resume seconds), every user checked again; (f) 48 requests over
+           8 threads, all 200, none shed, ``/readyz`` 200; (e) the broker
+           down again, the layer closed in the rebuild storm, its consumer
+           joined within 10 s (join seconds), no thread left. No kernel may
+           launch. Its consumer restarts are the one failure count the
+           loop's phase does not fail on.
   tools    the operator's tools of ``oryx_tpu_torch/tools``, reusing what
            earlier phases built (no second profiler session, no training):
            the ``profile`` session's Chrome trace, exported by
@@ -488,8 +516,8 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
 Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the durability phase
 ``als_durability``, in the loop's batch half ``lambda_loop.batch``, in the k-means generation, in the loop's speed
-half ``lambda_loop.speed``, in the HTTP app's path ``serving_http``,
-where the last two must be all 0, in the serving representations'
+half ``lambda_loop.speed``, in the HTTP app's path ``serving_http`` and
+in the chaos drill ``chaos``, where the last three must be all 0, in the serving representations'
 phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
 ``rdf_generation`` (all 0), and in the deployment's
 batch process
@@ -513,6 +541,8 @@ at once.
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 import contextlib
 import http.client
 import io
@@ -533,12 +563,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from aiohttp import web
 
 from oryx_tpu_torch.api.keymessage import KeyMessage
 from oryx_tpu_torch.common import blackbox
 from oryx_tpu_torch.common import checkpoint as ck
 from oryx_tpu_torch.common import compilecache
 from oryx_tpu_torch.common import config as oryx_config
+from oryx_tpu_torch.common import faults
 from oryx_tpu_torch.common import ioutils
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics
@@ -575,10 +607,11 @@ from oryx_tpu_torch.ops import vectormath
 from oryx_tpu_torch.parallel import distributed
 from oryx_tpu_torch.parallel.mesh import ComputeContext, make_mesh, shard_rows
 from oryx_tpu_torch.pmml import pmmlutils
-from oryx_tpu_torch.serving.app import ServingLayer
+from oryx_tpu_torch.serving.app import ServingLayer, make_app
 from oryx_tpu_torch.tools import sanitize as port_sanitize
 from oryx_tpu_torch.tools import trace_summary
 from oryx_tpu_torch.tools import traffic
+from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
 from oryx_tpu_torch import state
 
@@ -659,11 +692,13 @@ FLAGSHIP_CHANGED, FLAGSHIP_NEW = 10_000, 1_000
 # /recommend (with and without their known items) against the loop's
 # in-process model, 1,000 ingested lines (100 of their users checked
 # after), closed-loop load at four concurrencies (connections, requests)
-# from a client process; scores within HTTP_REL relative. k-means: 1,000
-# queries of each route and 100 /add lines
+# from a client process; scores within HTTP_REL relative, and a top 10's
+# last tie group may take its ties from the reference's next HTTP_TIE_DEPTH
+# answers. k-means: 1,000 queries of each route and 100 /add lines
 HTTP_USERS, HTTP_INGEST_LINES, HTTP_TOUCHED = 1_000, 1_000, 100
 HTTP_LOAD = ((1, 400), (16, 1_500), (64, 3_000), (256, 3_000))
 HTTP_REL = 1e-5
+HTTP_TIE_DEPTH = 10
 HTTP_KMEANS_QUERIES, HTTP_KMEANS_ADDS = 1_000, 100
 
 # the serving representations: LSH at the reference baseline's rate
@@ -3656,7 +3691,9 @@ def lambda_loop_phase(lines, rng) -> dict:
             out = {"batch": loop_generation(loop, lines, rng)}
             out["speed"] = loop_speed(loop, lines, rng)
             out["serving_http"] = serving_http_phase(loop, rng)
-            # its own generator: the later phases' draws stay as they were
+            # the drill and the swap take generators of their own: the
+            # later phases' draws stay as they were
+            out["chaos"] = chaos_phase(loop, np.random.default_rng(SEED + 71))
             out["serving_swap"] = serving_swap_phase(
                 loop, [ln for ln in lines if int(ln[1:ln.index(",")]) < SWAP_USERS],
                 np.random.default_rng(SEED + 41))
@@ -3666,12 +3703,16 @@ def lambda_loop_phase(lines, rng) -> dict:
             loop.close()
         loop.await_layers()
     after = registry.snapshot()
+    # the chaos drill's layer restarts its consumer on purpose
+    injected = {"oryx_serving_consumer_restarts_total{}":
+                out["chaos"]["consumer_restarts"]}
     failures = {}
     for name in FAILURE_COUNTERS:
         for labels, value in after.get(name, {}).items():
-            delta = value - before.get(name, {}).get(labels, 0.0)
+            key = f"{name}{{{labels}}}"
+            delta = value - before.get(name, {}).get(labels, 0.0) - injected.get(key, 0)
             if delta:
-                failures[f"{name}{{{labels}}}"] = delta
+                failures[key] = delta
     check(not failures, f"lambda_loop: failures counted: {failures}")
     out["failures"] = failures
     return out
@@ -3710,29 +3751,35 @@ class HttpClient:
 
 
 def check_same_top_n(got, want, label: str, field: str = "value",
-                     beyond=()) -> None:
+                     beyond=(), ties: "list | None" = None) -> None:
     """``got`` (a body's ``[{"id", field}]``) against ``want`` (``(id,
     score)`` pairs): scores within ``HTTP_REL`` relative, and ids equal
     wherever neighbouring scores are not within it of each other (a near
     tie may order its ids either way, but holds the same ids). ``beyond``
     holds the ``(id, score)`` pairs that rank just past ``want``'s cut: a
-    tie group that reaches the cut may hold one of those tied with it
-    instead (which side of the cut a tie falls on is a rounding)."""
+    tie group that reaches the cut may hold any of those tied with it
+    instead (which side of the cut a tie falls on is a rounding), so pass
+    enough of them to hold the whole group. Each such stand-in is
+    appended to ``ties``, when given, with its two scores."""
     check(len(got) == len(want), f"{label}: {len(got)} results, expected {len(want)}")
     gs = [float(e[field]) for e in got]
     ws = [float(v) for _, v in want]
     close = lambda a, b: abs(a - b) <= HTTP_REL * max(abs(a), abs(b), 1e-30)  # noqa: E731
-    check(all(close(a, b) for a, b in zip(gs, ws)),
-          f"{label}: scores {gs} differ from {ws}")
+    shown = (f"{[(e['id'], e[field]) for e in got]} against {list(want)} "
+             f"(beyond: {list(beyond)})")
+    check(all(close(a, b) for a, b in zip(gs, ws)), f"{label}: scores {shown}")
     start = 0
     for j in range(1, len(got) + 1):
         if j == len(got) or not close(ws[j], ws[j - 1]):
             ids = {e["id"] for e in got[start:j]}
             allowed = {i for i, _ in want[start:j]}
-            if j == len(got):
-                allowed |= {i for i, v in beyond if close(float(v), ws[j - 1])}
-            check(ids <= allowed, f"{label}: ids {[e['id'] for e in got]} "
-                  f"differ from {[i for i, _ in want]} (beyond: {list(beyond)})")
+            tied = ({i: float(v) for i, v in beyond if close(float(v), ws[j - 1])}
+                    if j == len(got) else {})
+            check(ids <= allowed | tied.keys(), f"{label}: ids {shown}")
+            if ties is not None:
+                ties.extend({"label": label, "id": e["id"], "got": float(e[field]),
+                             "ref": tied[e["id"]], "cut": ws[j - 1]}
+                            for e in got[start:j] if e["id"] not in allowed)
             start = j
 
 
@@ -3933,20 +3980,22 @@ def check_routes_once(client, model, http_model, generation: str, rng) -> list:
     return checked
 
 
-def check_recommend(client, model, users, generation: str, label: str) -> int:
+def check_recommend(client, model, users, generation: str, label: str,
+                    ties: "list | None" = None) -> int:
     """``/recommend/{u}?howMany=10`` for ``users``, with and without
     ``considerKnownItems``, against the in-process model's ``top_n`` with
-    the same known items excluded (its 11th answer may stand in for the
-    10th where the two tie). Returns the requests made."""
+    the same known items excluded (its next ``HTTP_TIE_DEPTH`` answers may
+    stand in for the 10th's tie group; each stand-in goes to ``ties``).
+    Returns the requests made."""
     for u in users:
         uv = model.get_user_vector(u)
         for consider in (False, True):
             path = f"/recommend/{u}?howMany=10" + ("&considerKnownItems=true"
                                                   if consider else "")
-            want = model.top_n(uv, 11, excluded=None if consider
+            want = model.top_n(uv, 10 + HTTP_TIE_DEPTH, excluded=None if consider
                                else model.get_known_items(u))
             check_same_top_n(client.json(path, generation), want[:10],
-                             f"{label} {path}", beyond=want[10:])
+                             f"{label} {path}", beyond=want[10:], ties=ties)
     return 2 * len(users)
 
 
@@ -3994,9 +4043,11 @@ def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
             users = model.all_user_ids()
             sample = [users[j] for j in rng.choice(len(users), HTTP_USERS, replace=False)]
             t0 = time.perf_counter()
-            n = check_recommend(client, model, sample, generation, "serving_http")
+            ties: list = []
+            n = check_recommend(client, model, sample, generation, "serving_http", ties)
             out["recommend_checked"] = {"users": len(sample), "requests": n,
-                                        "seconds": time.perf_counter() - t0}
+                                        "seconds": time.perf_counter() - t0,
+                                        "ties_at_cut": ties}
             out["routes_checked"] = check_routes_once(client, model, http_model,
                                                       generation, rng)
 
@@ -4089,6 +4140,371 @@ def serving_http_phase(loop: "LambdaLoop", rng, device=None) -> dict:
     out["launches"] = dict(K.LAUNCHES)
     check(not any(out["launches"].values()),
           f"serving_http: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the resilience subsystem under scheduled faults ----------------------------
+
+# tests/test_chaos.py's pair: fast retries, a breaker that opens after 2
+# failures and probes every 300 ms, fast consumer restarts, a dense tsdb
+CHAOS_SETTINGS = {
+    "oryx.tsdb.sample-interval-sec": 0.05,
+    "oryx.resilience.retry.base-delay-ms": 2,
+    "oryx.resilience.retry.max-delay-ms": 20,
+    "oryx.resilience.breaker.failure-threshold": 2,
+    "oryx.resilience.breaker.reset-sec": 0.3,
+    "oryx.resilience.consumer-restart.base-delay-ms": 20,
+    "oryx.resilience.consumer-restart.max-delay-ms": 100,
+}
+CHAOS_USERS = 20
+CHAOS_BURST = 12
+CHAOS_WARM = (8, 48)  # threads, requests
+CHAOS_ITEM = "chaos-item"
+CHAOS_JOIN_S = 10.0  # the reference case's bound on the consumer's join
+BREAKER_LABEL = 'breaker="serving.device_call"'
+
+
+class AppServer:
+    """An aiohttp app from ``make_app`` served on a free port by a thread of
+    its own; leaving the block stops the server and waits for its executor
+    (a device call still sleeping in an injected latency included)."""
+
+    def __init__(self, app):
+        self.port = ioutils.choose_free_port()
+        self._app = app
+        self._loop = asyncio.new_event_loop()
+        self._started = threading.Event()
+        self._thread = threading.Thread(target=self._serve, name="SmokeAppServer",
+                                        daemon=True)
+
+    def _serve(self) -> None:
+        asyncio.set_event_loop(self._loop)
+        runner = web.AppRunner(self._app, access_log=None)
+        self._loop.run_until_complete(runner.setup())
+        site = web.TCPSite(runner, "127.0.0.1", self.port)
+        self._loop.run_until_complete(site.start())
+        self._started.set()
+        self._loop.run_forever()
+        self._loop.run_until_complete(runner.cleanup())
+        self._loop.run_until_complete(self._loop.shutdown_default_executor())
+        self._loop.close()
+
+    def __enter__(self) -> int:
+        self._thread.start()
+        check(self._started.wait(15), "chaos: an app server did not start")
+        return self.port
+
+    def __exit__(self, *exc) -> None:
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(30)
+        check(not self._thread.is_alive(), "chaos: an app server did not stop")
+
+
+def series(name: str, labels: str = "") -> float:
+    """One series of the port's registry (0 before its first sample)."""
+    return metrics.default_registry().snapshot().get(name, {}).get(labels, 0.0)
+
+
+def breaker_state(client) -> float:
+    """``oryx_circuit_breaker_state`` of the device-call breaker, as
+    ``GET /metrics`` renders it (0 closed, 1 open, 2 half-open)."""
+    status, _, data = client.request("GET", "/metrics")
+    check(status == 200, f"chaos: GET /metrics: {status}")
+    return parse_prometheus(data.decode())["oryx_circuit_breaker_state"][BREAKER_LABEL]
+
+
+def burst(port: int, users: list, threads: int) -> list:
+    """``GET /recommend/{u}?howMany=10`` for each of ``users`` from
+    ``threads`` threads at once, each request on a connection of its own;
+    ``(user, status, headers, body)`` in the order of ``users``."""
+    def get(u):
+        conn = HttpClient(port)
+        try:
+            return (u, *conn.request("GET", f"/recommend/{u}?howMany=10"))
+        finally:
+            conn.close()
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(get, users))
+
+
+def refused(port: int) -> bool:
+    """No listener on ``port`` any more: a connect is refused."""
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+    except ConnectionRefusedError:
+        return True
+    return False
+
+
+def chaos_phase(loop: "LambdaLoop", rng, device=None) -> dict:
+    """``tests/test_chaos.py``'s drill on a serving layer of the loop's
+    generation (see the module docstring): the update stream bulk-loaded
+    under a ``tcp:`` broker in this process, a ``ServingLayer`` on
+    ``device`` (None: the card) with the chaos pair's resilience settings,
+    then (a) the breaker, (b) shedding, (c) the request deadline, (d) a
+    broker outage across consumer restarts, (f) a warm window and (e) a
+    close during the rebuild storm. Every answer the layer gives is held
+    against the loop's in-process model; no kernel may launch."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    model = loop.serving.get_model()
+    total = loop.update_size()
+    stream = loop.broker.read(loop.update_topic, 0, total)
+    check(len(stream) == total, f"chaos: read {len(stream)} of {total} updates")
+    users = model.all_user_ids()
+    sample = [users[j] for j in rng.choice(len(users), CHAOS_USERS, replace=False)]
+    # each user's top 10 from the loop's model, and the HTTP_TIE_DEPTH
+    # answers past it that may stand in for the 10th's tie group
+    want = {u: model.top_n(model.get_user_vector(u), 10 + HTTP_TIE_DEPTH,
+                           excluded=model.get_known_items(u)) for u in sample}
+    check(all(float(w[9][1]) > 0 for w in want.values()),
+          "chaos: a sampled user's 10th score is not positive (the zero "
+          f"{CHAOS_ITEM} could enter the top 10)")
+    path = {u: f"/recommend/{u}?howMany=10" for u in sample}
+    checked = {"n": 0}
+
+    def hold(body, u: str, label: str, against=None) -> None:
+        """``body`` against the loop model's top 10 for ``u`` or, given,
+        the ``against`` body's (id, value) pairs."""
+        ref = (want[u][:10] if against is None
+               else [(e["id"], e["value"]) for e in against])
+        check_same_top_n(body, ref, f"chaos {label} {u}", beyond=want[u][10:])
+        checked["n"] += 1
+
+    out: dict = {"update_messages": total}
+    with tempfile.TemporaryDirectory(prefix="oryx-chaos-") as tmp:
+        t0 = time.perf_counter()
+        bulk_load(Path(tmp), loop.update_topic, stream, "chaos")
+        out["bulk_load_s"] = time.perf_counter() - t0
+        server = netbroker.NetBrokerServer(tmp, host="127.0.0.1",
+                                           port=0).start_background()
+        broker_port = server.port
+        url = f"tcp://127.0.0.1:{broker_port}"
+        conf = loop.conf.with_values({
+            "oryx.input-topic.broker": url,
+            "oryx.update-topic.broker": url,
+            "oryx.serving.model-manager-class":
+                "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+            "oryx.serving.application-resources":
+                "oryx_tpu_torch.serving.resources.als",
+            **CHAOS_SETTINGS})
+        layer, port, t_start, threads = start_layer(conf, "chaos", device)
+        client = HttpClient(port)
+        closed = False
+        try:
+            t_current = wait_until(lambda: applied_messages(layer) >= total, 300,
+                                   "chaos: the replay over tcp", layers=loop.layers,
+                                   poll=0.01)
+            out["replay_s"] = t_current - t_start
+            check(client.request("GET", "/ready")[0] == 200, "chaos: /ready")
+            coalesced = {}
+            for u in sample:
+                coalesced[u] = client.json(path[u])
+                hold(coalesced[u], u, "coalesced")
+            u0 = sample[0]
+
+            # (a) the device-call breaker: two failed coalesced calls open
+            # it, their requests answered by the per-request fallback
+            before = metrics.default_registry().snapshot()
+            t0 = time.perf_counter()
+            degraded0 = series("oryx_breaker_degraded_requests_total")
+            faults.arm("serving.device_call=fail:2", seed=0)
+            answered = 0  # every answer of (a), each against the coalesced one
+            try:
+                for _ in range(2):
+                    hold(client.json(path[u0]), u0, "fallback", coalesced[u0])
+                    answered += 1
+                check(breaker_state(client) == 1.0,
+                      "chaos: the breaker did not open after 2 failures")
+                hold(client.json(path[u0]), u0, "open breaker", coalesced[u0])
+                answered += 1
+                check(series("oryx_breaker_degraded_requests_total") > degraded0 + 2,
+                      "chaos: no degraded answer while the breaker was open")
+                while True:
+                    time.sleep(0.15)
+                    hold(client.json(path[u0]), u0, "probe", coalesced[u0])
+                    answered += 1
+                    if breaker_state(client) == 0.0:
+                        break
+                    check(time.perf_counter() - t0 < 10,
+                          "chaos: the breaker did not close within 10 s")
+            finally:
+                faults.disarm()
+            after = metrics.default_registry().snapshot()
+            moves = {to: after["oryx_circuit_breaker_transitions_total"].get(
+                f'{BREAKER_LABEL},to="{to}"', 0.0)
+                - before.get("oryx_circuit_breaker_transitions_total", {}).get(
+                f'{BREAKER_LABEL},to="{to}"', 0.0)
+                for to in ("open", "half_open", "closed")}
+            check(all(n >= 1 for n in moves.values()),
+                  f"chaos: breaker transitions {moves}")
+            degraded = series("oryx_breaker_degraded_requests_total") - degraded0
+            check(degraded <= answered, f"chaos: {degraded} degraded answers, "
+                  f"{answered} checked")
+            out["breaker"] = {"degraded_requests": degraded,
+                              "answers_checked": answered, "transitions": moves,
+                              "seconds": time.perf_counter() - t0}
+
+            # (b) shedding: an app over the same manager with a queue of 1
+            # and one call in flight, each call 400 ms late
+            t0 = time.perf_counter()
+            app = make_app(conf.with_values({
+                "oryx.serving.compute.max-queue-depth": 1,
+                "oryx.serving.compute.coalesce-inflight": 1,
+                "oryx.serving.compute.coalesce-deadline-ms": 0}), layer.manager)
+            shed0 = series("oryx_shed_requests_total")
+            faults.arm("serving.device_call=latency:400", seed=0)
+            try:
+                with AppServer(app) as shed_port:
+                    answers = burst(shed_port, sample[:CHAOS_BURST], CHAOS_BURST)
+            finally:
+                faults.disarm()
+            statuses = sorted(a[1] for a in answers)
+            shed = [a for a in answers if a[1] == 503]
+            check(set(statuses) <= {200, 503} and shed,
+                  f"chaos: the {CHAOS_BURST}-way burst gave {statuses}")
+            check(all(h.get("retry-after") and json.loads(b)["status"] == 503
+                      for _, _, h, b in shed), "chaos: a 503 without Retry-After")
+            shed_n = series("oryx_shed_requests_total") - shed0
+            check(shed_n == len(shed), f"chaos: {shed_n} shed counted, "
+                  f"{len(shed)} answered 503")
+            for u, status, _, body in answers:
+                if status == 200:
+                    got = json.loads(body)
+                    check(len(got) == 10, f"chaos: {path[u]} gave {len(got)} items")
+                    hold(got, u, "accepted")
+            out["shed"] = {"statuses": statuses, "shed": len(shed),
+                           "shed_counted": shed_n, "seconds": time.perf_counter() - t0}
+
+            # (c) the request deadline: 150 ms against a 2 s device call
+            t0 = time.perf_counter()
+            app = make_app(conf.with_values(
+                {"oryx.serving.api.request-timeout-sec": 0.15}), layer.manager)
+            faults.arm("serving.device_call=latency:2000", seed=0)
+            try:
+                with AppServer(app) as dl_port:
+                    dl = HttpClient(dl_port)
+                    try:
+                        status, _, data = dl.request("GET", path[u0])
+                        body = json.loads(data)
+                        check(status == 504 and body["status"] == 504
+                              and body.get("trace_id"),
+                              f"chaos: the deadline gave {status} {body}")
+                        trace = dl.json(f"/trace?trace_id={body['trace_id']}")
+                        names = {sp["name"] for sp in trace["spans"]}
+                        check(any(n.startswith("http GET") for n in names),
+                              f"chaos: the 504's trace holds {sorted(names)}")
+                        check(dl.request("GET", "/healthz")[0] == 200,
+                              "chaos: /healthz beside the 504")
+                    finally:
+                        dl.close()
+            finally:
+                faults.disarm()
+            out["deadline"] = {"status": status, "trace_spans": len(names),
+                               "seconds": time.perf_counter() - t0}
+
+            # (d) a broker outage: the consumer restarts while it is down,
+            # the layer answers throughout, and consumes again once the
+            # broker is back on the same port over the same directory
+            t0 = time.perf_counter()
+            server.close()
+            close_s = time.perf_counter() - t0
+            wait_until(lambda: refused(broker_port), 30, "chaos: the broker's port",
+                       layers=loop.layers)
+            refused_s = time.perf_counter() - t0
+            restarts0 = layer.consumer_restarts
+            faults.arm("serving.update_consume=fail:1", seed=0)
+            down = 0
+            try:
+                while layer.consumer_restarts < restarts0 + 2:
+                    check(time.perf_counter() - t0 < 20,
+                          "chaos: the consumer died instead of retrying its rebuild "
+                          f"({layer.consumer_restarts - restarts0} restarts)")
+                    hold(client.json(path[u0]), u0, "broker down", coalesced[u0])
+                    down += 1
+                    time.sleep(0.05)
+            finally:
+                faults.disarm()
+            restarts_down = layer.consumer_restarts - restarts0
+            t_up = time.perf_counter()
+            server = netbroker.NetBrokerServer(tmp, host="127.0.0.1",
+                                               port=broker_port).start_background()
+            tp.TopicProducerImpl(url, loop.update_topic).send(
+                "UP", json.dumps(["Y", CHAOS_ITEM, [0.0] * model.features]))
+            def resumed():
+                served = layer.manager.get_model()
+                return served is not None and served.get_item_vector(CHAOS_ITEM) is not None
+
+            t_item = wait_until(resumed, 30, "chaos: the consumer resumes",
+                                layers=loop.layers)
+            check(applied_messages(layer) == total + 1,
+                  f"chaos: {applied_messages(layer)} applied after the outage, "
+                  f"expected {total + 1}")
+            for u in sample:
+                hold(client.json(path[u]), u, "after the outage")
+            out["outage"] = {"close_s": close_s, "close_to_refused_s": refused_s,
+                             "restarts_while_down": restarts_down,
+                             "answers_while_down": down,
+                             "resume_s": t_item - t_up,
+                             "seconds": time.perf_counter() - t0}
+
+            # (f) the warm window: no fault armed, no error, nothing shed
+            t0 = time.perf_counter()
+            shed0 = series("oryx_shed_requests_total")
+            threads_n, n = CHAOS_WARM
+            answers = burst(port, [sample[j % len(sample)] for j in range(n)],
+                            threads_n)
+            check([a[1] for a in answers] == [200] * n,
+                  f"chaos: the warm window gave {sorted({a[1] for a in answers})}")
+            for u, _, _, body in answers:
+                hold(json.loads(body), u, "warm")
+            shed_n = series("oryx_shed_requests_total") - shed0
+            check(shed_n == 0, f"chaos: {shed_n} shed in the warm window")
+            check(client.request("GET", "/readyz")[0] == 200, "chaos: /readyz")
+            out["warm"] = {"requests": n, "threads": threads_n, "shed": shed_n,
+                           "seconds": time.perf_counter() - t0}
+
+            # (e) close during the rebuild storm: the broker down again, the
+            # consumer cycling through failed rebuilds, then close()
+            t0 = time.perf_counter()
+            server.close()
+            restarts0 = layer.consumer_restarts
+            faults.arm("serving.update_consume=fail:1", seed=0)
+            try:
+                wait_until(lambda: layer.consumer_restarts > restarts0, 20,
+                           "chaos: the rebuild storm", layers=loop.layers)
+            finally:
+                faults.disarm()
+            client.close()
+            t_close = time.perf_counter()
+            closed = True
+            layer.close()
+            consumer = layer._consumer_thread
+            consumer.join(CHAOS_JOIN_S)
+            join_s = time.perf_counter() - t_close
+            check(not consumer.is_alive(), "chaos: the consumer thread outlived "
+                  f"close() by {CHAOS_JOIN_S} s")
+            left = layer_threads(threads)
+            check(not left, f"chaos: threads left after close(): {left}")
+            out["close_in_storm"] = {"restarts": layer.consumer_restarts - restarts0,
+                                     "join_s": join_s, "threads_left": left,
+                                     "seconds": time.perf_counter() - t0}
+            out["consumer_restarts"] = layer.consumer_restarts
+            check(layer._failure is None,
+                  f"chaos: the consumer gave up: {layer._failure!r}")
+        finally:
+            faults.disarm()
+            if not closed:
+                client.close()
+                layer.close()
+            server.close()
+            tp.reset_tcp_clients()
+    out["answers_checked"] = checked["n"]
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"chaos: kernels launched: {out['launches']}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4545,30 +4961,37 @@ def hocon(settings: dict) -> str:
     return "".join(f"{key} = {json.dumps(value)}\n" for key, value in settings.items())
 
 
-def bulk_load(root: Path, topic: str, lines) -> None:
-    """Write ``lines`` (keyless) as the one-partition ``file:`` log of
-    ``topic`` under ``root`` in one write, framed as ``FileBroker.append``
-    frames each record (checked on the first lines): a million appends,
-    each opening and locking the log, would take about a minute."""
+def bulk_load(root: Path, topic: str, lines, what: str = "deployment") -> None:
+    """Write ``lines`` (keyless strings, or ``KeyMessage``s with their keys
+    and headers) as the one-partition ``file:`` log of ``topic`` under
+    ``root`` in one write, framed as ``FileBroker.append`` frames each
+    record (checked on the first lines): a million appends, each opening
+    and locking the log, would take about a minute."""
+    messages = [km if isinstance(km, KeyMessage) else KeyMessage(None, km)
+                for km in lines]
     broker = tp.FileBroker(str(root))
     broker.create_topic(topic)
     probe = tp.FileBroker(str(root / ".probe"))
     probe.create_topic(topic)
-    for ln in lines[:100]:
-        probe.append(topic, None, ln)
-    log = broker._log_path(topic, 0)
+    for km in messages[:100]:
+        probe.append(topic, km.key, km.message, km.headers)
+
+    def record(km):
+        out = {"k": km.key, "m": km.message}
+        if km.headers:
+            out["h"] = km.headers
+        return out
 
     def frames(chunk):
         return b"".join(tp.frame_record(json.dumps(
-            {"k": None, "m": ln}, separators=(",", ":")).encode("utf-8"))
-            for ln in chunk)
+            record(km), separators=(",", ":")).encode("utf-8")) for km in chunk)
 
-    check(frames(lines[:100]) == probe._log_path(topic, 0).read_bytes(),
-          "deployment: the bulk load's frames are not FileBroker.append's")
-    with open(log, "ab") as f:
-        for j in range(0, len(lines), 100_000):
-            f.write(frames(lines[j:j + 100_000]))
-    check(broker.size(topic) == len(lines), "deployment: the bulk-loaded log's size")
+    check(frames(messages[:100]) == probe._log_path(topic, 0).read_bytes(),
+          f"{what}: the bulk load's frames are not FileBroker.append's")
+    with open(broker._log_path(topic, 0), "ab") as f:
+        for j in range(0, len(messages), 100_000):
+            f.write(frames(messages[j:j + 100_000]))
+    check(broker.size(topic) == len(messages), f"{what}: the bulk-loaded log's size")
 
 
 def child_env(overrides: dict) -> dict:
@@ -5117,10 +5540,12 @@ def deployment_run(dep: Deployment, lines, rng, timeout: float = 600) -> dict:
             check(status == 200 and readyz["model"] == "loaded",
                   f"deployment: serving-{r} /readyz {status} {readyz}")
             t0 = time.perf_counter()
+            ties: list = []
             requests = check_recommend(client, model, sample, generation,
-                                       f"deployment serving-{r}")
+                                       f"deployment serving-{r}", ties)
             replicas.append({"recommend_checked": requests,
-                             "seconds": time.perf_counter() - t0})
+                             "seconds": time.perf_counter() - t0,
+                             "ties_at_cut": ties})
         finally:
             client.close()
         info = dep.metrics(r).get("oryx_build_info", {})
@@ -6944,11 +7369,15 @@ def main() -> int:
                  f"({len(loop_lines)} lines), as the deployment's",
         "microbatches": f"2 x {SPEED_MICROBATCH}, cut from 2 x 50000 with the users"}
     serving_http = loop.pop("serving_http")
+    chaos = loop.pop("chaos")
     serving_swap = loop.pop("serving_swap")
     quant_http = loop.pop("serving_quant_http")
     tools = serving_http.pop("tools")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
+    emit("chaos", **chaos, gpu=smi, reduced={
+        "layer": "one replica of the loop's generation; the drill's speed "
+                 "tier is the loop's, on its memory: topics"})
     tools_s = (tools.pop("seconds") + tools_read_back["export_s"]
                + tools_read_back["summarize_s"] + tools_read_back["cli_s"])
     emit("tools", trace=tools_read_back, **tools, gpu=smi, seconds=tools_s,
@@ -7003,6 +7432,8 @@ def main() -> int:
         # the HTTP app's path (the ALS and the k-means layer) launches none
         "serving_http": {w: serving_http["launches"][w] + km_http["launches"][w]
                          for w in serving_http["launches"]},
+        # the chaos drill's layer and apps launch none
+        "chaos": chaos["launches"],
         # read from the batch process's oryx_device_calls_total
         "deployment": {w: deployment["launches"][w] for w in ALS_WRAPPERS},
         # the serving representations (in process and over HTTP) launch none

@@ -7,8 +7,8 @@ The port of the JAX package's ``oryx_tpu/cli/main.py`` (which is unchanged:
   * The device: ``batch`` and ``speed`` take theirs from
     ``oryx.{batch,speed}.streaming.config.platform``, falling back to
     ``oryx.default-compute-config.platform``
-    (:class:`~oryx_tpu_torch.parallel.mesh.ComputeContext`); ``serving``
-    builds its layer on the device that shared key names. Null, ``gpu`` or
+    (:class:`~oryx_tpu_torch.parallel.mesh.ComputeContext`); ``serving``'s
+    layer takes the device that shared key names. Null, ``gpu`` or
     ``cuda`` mean the CUDA card and ``cpu`` the CPU, so the one key asks a
     whole deployment for the CPU, as ``JAX_PLATFORMS=cpu`` does for the
     reference. Without a card and without ``cpu`` a layer command exits
@@ -70,10 +70,8 @@ def _load_config(path: "str | None"):
     return cfg.get_default()
 
 
-def _run_layer(layer_cls_path: str, config, **kwargs) -> int:
-    """Main.java pattern: construct, close-at-shutdown, start, await.
-    ``kwargs`` go to the layer's constructor (the serving layer's
-    ``device``)."""
+def _run_layer(layer_cls_path: str, config) -> int:
+    """Main.java pattern: construct, close-at-shutdown, start, await."""
     from oryx_tpu_torch.parallel.distributed import initialize_from_config
 
     initialize_from_config(config)
@@ -87,7 +85,7 @@ def _run_layer(layer_cls_path: str, config, **kwargs) -> int:
     # CHAINS a flight-recorder dump in front of whatever SIGTERM handler
     # exists — installing ours afterwards would silently drop the dump
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
-    layer = layer_cls(config, **kwargs)
+    layer = layer_cls(config)
     close_at_shutdown(layer)
     layer.start()
     try:
@@ -348,12 +346,7 @@ def main(argv: "list[str] | None" = None) -> int:
     if args.command == "speed":
         return _run_layer("oryx_tpu_torch.lambda_rt.speed.SpeedLayer", config)
     if args.command == "serving":
-        from oryx_tpu_torch.parallel import mesh
-
-        device = mesh.platform_device(mesh.default_platform(config),
-                                      mesh.DEFAULT_COMPUTE_KEY)
-        return _run_layer("oryx_tpu_torch.serving.app.ServingLayer", config,
-                          device=device)
+        return _run_layer("oryx_tpu_torch.serving.app.ServingLayer", config)
     if args.command == "topic-setup":
         return cmd_topic_setup(config, args)
     if args.command == "topic-tail":

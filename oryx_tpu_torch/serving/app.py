@@ -9,10 +9,12 @@ JAX) on the same aiohttp, held to it over HTTP by
     lineage, the ``tcp:`` client defaults, the file broker's fsync policy,
     profiling, the factor arena's sizing, the sanitizer's thresholds). The
     reference's compile cache has no torch counterpart.
-  * ``ServingLayer(config, device=None)`` serves a model on ``device``:
-    None means the CUDA card. ``start()`` resolves it before it creates a
-    topic, a thread, a producer or a socket, so on a host without a card it
-    raises with nothing started; a manager class whose constructor takes a
+  * ``ServingLayer(config, device=None)`` serves a model on ``device``.
+    None takes the device that ``oryx.default-compute-config.platform``
+    names, as the batch and speed tiers do: null (the default), ``gpu``
+    or ``cuda`` mean the CUDA card, ``cpu`` the CPU. ``start()`` resolves
+    it before it creates a topic, a thread, a producer or a socket, so on
+    a host without a card it raises with nothing started; a manager class whose constructor takes a
     ``device`` keyword is built on that device. A configured
     ``oryx.als.rescorer-provider-class`` is loaded at construction, so a
     class that cannot be loaded, or is not the port's ``RescorerProvider``,
@@ -65,6 +67,7 @@ from oryx_tpu_torch.common import slo
 from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common import tsdb
 from oryx_tpu_torch.models.als.rescorer import load_rescorer_providers
+from oryx_tpu_torch.parallel import mesh
 from oryx_tpu_torch.serving import resource as rsrc
 from oryx_tpu_torch.transport import netbroker
 from oryx_tpu_torch.transport import topic as tp
@@ -820,8 +823,9 @@ def _warn_if_alive(thread: threading.Thread, waited_s: float) -> None:
 class ServingLayer:
     """Lifecycle: model manager + update consumer + HTTP server
     (ServingLayer.start/await/close:121-178, ModelManagerListener:102-145).
-    The model lives on ``device`` (None: the CUDA card; ``"cpu"`` must be
-    asked for)."""
+    The model lives on ``device`` (None: the one
+    ``oryx.default-compute-config.platform`` names, the CUDA card unless
+    that key asks for the CPU)."""
 
     def __init__(self, config, device=None):
         self.config = config
@@ -832,6 +836,9 @@ class ServingLayer:
         # (start() resolves brokers well before make_app re-configures)
         netbroker.configure(config)
         tp.configure(config)
+        if device is None:
+            device = mesh.platform_device(mesh.default_platform(config),
+                                          mesh.DEFAULT_COMPUTE_KEY)
         self._device_arg = device
         self.device = None  # resolved by start()
         self.id = config.get_string("oryx.id", None)

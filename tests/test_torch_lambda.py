@@ -673,6 +673,45 @@ def test_als_loop_through_topics_emits_the_direct_updates(tmp_path):
         want_model.top_n_batch(qs, 5, excluded=excluded)
 
 
+def test_smoke_chaos_phase_on_a_small_loop(tmp_path):
+    """``chip_smoke.chaos_phase`` on the loop above (300 users x 120 items)
+    on the CPU: the generation's update stream bulk-loaded under a ``tcp:``
+    broker, a serving layer replaying it, then the breaker's open and
+    close, shedding with ``Retry-After``, the 504 with its trace, the
+    outage across consumer restarts, the warm window and the close during
+    the rebuild storm, every answer held against the loop's model."""
+    import chip_smoke as cs
+
+    lines = _loop_lines()[:N_LINES - 2 * MICROBATCH]
+    loop = LambdaLoop(str(tmp_path), {**_LOOP, "oryx.id": "chaos"},
+                      broker="memory:", serving_device="cpu")
+    try:
+        loop.run_batch(lines, 0.2, 0.5, 120)
+        loop.settle(30, "before the chaos phase")
+        out = cs.chaos_phase(loop, np.random.default_rng(5), device="cpu")
+        assert not loop.speed.stopped
+    finally:
+        loop.close()
+    loop.await_layers()
+    assert out["update_messages"] == loop.update_size() > N_USERS
+    breaker = out["breaker"]
+    assert breaker["answers_checked"] >= breaker["degraded_requests"] >= 3
+    assert all(n >= 1 for n in breaker["transitions"].values())
+    shed = out["shed"]
+    assert shed["shed"] == shed["shed_counted"] > 0
+    assert set(shed["statuses"]) <= {200, 503} and len(shed["statuses"]) == cs.CHAOS_BURST
+    assert out["deadline"]["status"] == 504
+    outage = out["outage"]
+    assert outage["restarts_while_down"] >= 2 and outage["resume_s"] < 30
+    assert out["warm"]["shed"] == 0 and out["warm"]["requests"] == 48
+    assert out["close_in_storm"]["join_s"] < cs.CHAOS_JOIN_S
+    assert out["close_in_storm"]["threads_left"] == []
+    # the coalesced answers, each fault step's, the outage's and the warm
+    # window's, all against the loop's model
+    assert out["answers_checked"] >= 2 * cs.CHAOS_USERS + 3 + 48
+    assert not any(out["launches"].values())
+
+
 # -- the copied hook modules against the reference ------------------------------------
 
 

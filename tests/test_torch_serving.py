@@ -748,6 +748,25 @@ def test_probes_metrics_lineage_and_no_profiler(serving):
     assert "recent" in trace and "slowest_by_route" in trace
 
 
+@pytest.mark.parametrize("platform, device, want", [
+    (None, None, None), ("gpu", None, "cuda"), ("cuda", None, "cuda"),
+    ("cpu", None, "cpu"), ("cpu", "cuda", "cuda"), (None, "cpu", "cpu"),
+])
+def test_layer_device_from_the_default_compute_platform(platform, device, want):
+    """Without a ``device``, the layer takes the one that
+    ``oryx.default-compute-config.platform`` names, as the batch and speed
+    tiers do (None: the card, resolved by ``start()``); a ``device`` given
+    wins. Nothing starts at construction."""
+    config = _config(0, {"oryx.default-compute-config.platform": platform})
+    assert ServingLayer(config, device=device)._device_arg == want
+
+
+def test_layer_refuses_an_unknown_platform():
+    config = _config(0, {"oryx.default-compute-config.platform": "tpu"})
+    with pytest.raises(ValueError, match="oryx.default-compute-config"):
+        ServingLayer(config)
+
+
 def test_closed_layer_leaves_no_thread_and_frees_its_port(tiny):
     stream = tiny[0]
     tp.reset_memory_brokers()

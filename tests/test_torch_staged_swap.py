@@ -378,3 +378,25 @@ def test_smoke_top_n_check_takes_a_tie_at_the_cut_only():
         cs.check_same_top_n(got, want, "no tie", beyond=[("c", 1.9)])
     with pytest.raises(cs.SmokeFailure):
         cs.check_same_top_n(got, want, "nothing beyond")
+
+
+def test_smoke_top_n_check_takes_any_tie_of_the_cuts_group():
+    """A tie group of three across the cut: the answer may hold the
+    reference's 12th in place of its 10th where all three tie (the failure
+    a single ``beyond`` answer gave), each stand-in is recorded with both
+    scores, and an untied 12th still fails."""
+    import chip_smoke as cs
+
+    want = [("a", 3.0), ("b", 2.0)]
+    got = [{"id": "a", "value": 3.0}, {"id": "d", "value": 2.0 - 1e-6}]
+    ties: list = []
+    cs.check_same_top_n(got, want, "tie", beyond=[("c", 2.0 - 5e-7), ("d", 2.0 - 9e-6)],
+                        ties=ties)
+    assert ties == [{"label": "tie", "id": "d", "got": 2.0 - 1e-6,
+                     "ref": 2.0 - 9e-6, "cut": 2.0}]
+    with pytest.raises(cs.SmokeFailure):
+        cs.check_same_top_n(got, want, "no tie", beyond=[("c", 2.0 - 5e-7), ("d", 1.9)])
+    ties.clear()
+    cs.check_same_top_n([{"id": i, "value": v} for i, v in want], want, "same",
+                        beyond=[("c", 2.0)], ties=ties)
+    assert ties == []
