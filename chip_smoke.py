@@ -442,6 +442,35 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            generation 2's ``MODEL`` alone behind generation 1 is promoted
            by the deadline (counter + 1). No kernel launches but
            generation 2's;
+  observability
+           ``tests/test_spans.py``'s and ``tests/test_metrics.py``'s
+           end-to-end assertions on the card, last inside the loop (after
+           the ``serving_quant_http`` line; no training): a ``ServingLayer``
+           on the card replaying the loop's ``memory:`` update topic,
+           read-write. (a) 100 ``/recommend`` from one connection, then 25
+           from each of 16, from a client process, each with a fresh
+           ``traceparent`` and its trace fetched from ``/trace`` right
+           after its answer: every trace holds the ingress span and the
+           coalescer's queue wait, the device call (``batch.size`` >= 1,
+           ``pad.waste_rows``) reaches the wait as its parent or, for a
+           request that was not its batch's first, by a link (found among
+           the recent spans), and the wait and the call cover at least 95%
+           of the time from the wait's start to the call's end; p50 / p99
+           per concurrency of the ingress, wait and call milliseconds and
+           of the ingress time outside wait ∪ call (the HTTP front's), and
+           at 16 the distinct calls' batch sizes. (b) ``/metrics`` before
+           and after (a): the ``/recommend`` 200 counter and the
+           coalescer's batch-size sum up by exactly the 500 requests, the
+           top-N query counter by at least 500, the queue depth 0; an
+           OpenMetrics scrape's exemplar on the ``/recommend`` latency
+           resolves through ``/trace`` to its ingress span and a device
+           call. (c) one ``POST /pref`` with a fresh ``traceparent``: the
+           loop's speed layer records ``speed.consume_input`` under that
+           trace id within 15 s (seconds to it), and both of the loop's
+           managers apply the ``UP``s before the phase returns. (d)
+           ``blackbox.bundle``: the port's and torch's versions,
+           ``cuda:0`` in its memory section, the ``/recommend`` counter
+           equal to (b)'s scrape. No kernel may launch;
   sanitize the port's runtime concurrency sanitizer
            (``oryx_tpu_torch/tools/sanitize``) in a child interpreter,
            ``tests/torch_sanitize_child.py probe`` under
@@ -517,7 +546,8 @@ Then the ``{"kernels": [...], "paths": {...}, "path_checks": {...}}`` line
 (``paths``: the launches of each wrapper in the durability phase
 ``als_durability``, in the loop's batch half ``lambda_loop.batch``, in the k-means generation, in the loop's speed
 half ``lambda_loop.speed``, in the HTTP app's path ``serving_http`` and
-in the chaos drill ``chaos``, where the last three must be all 0, in the serving representations'
+in the chaos drill ``chaos`` and in the spans and scrape checks'
+``observability``, where the last four must be all 0, in the serving representations'
 phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
 ``rdf_generation`` (all 0), and in the deployment's
 batch process
@@ -1129,7 +1159,8 @@ def spd_crossover(dev, cta_fn) -> dict:
 # -- profile ----------------------------------------------------------------
 
 
-def _interval_union_us(intervals) -> float:
+def _interval_union(intervals) -> float:
+    """The length covered by the union of ``(start, end)`` intervals."""
     busy, end = 0.0, -float("inf")
     for s, e in sorted(intervals):
         if e > end:
@@ -1258,7 +1289,7 @@ def window_profile(events, wall_us: float) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (e.time_range.end
                                                   - e.time_range.start)
         count[name] = count.get(name, 0) + 1
-    busy_us = _interval_union_us(
+    busy_us = _interval_union(
         [(e.time_range.start, e.time_range.end) for e in events])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     return {
@@ -3698,6 +3729,10 @@ def lambda_loop_phase(lines, rng) -> dict:
                 loop, [ln for ln in lines if int(ln[1:ln.index(",")]) < SWAP_USERS],
                 np.random.default_rng(SEED + 41))
             out["serving_quant_http"] = serving_quant_http(loop, rng)
+            # last in the loop: its /pref changes one user's and one item's
+            # vectors, and no later phase checks an answer of this loop
+            out["observability"] = observability_phase(
+                loop, np.random.default_rng(SEED + 83))
             check(not loop.speed.stopped, "lambda_loop: the speed layer stopped")
         finally:
             loop.close()
@@ -4505,6 +4540,294 @@ def chaos_phase(loop: "LambdaLoop", rng, device=None) -> dict:
     out["launches"] = dict(K.LAUNCHES)
     check(not any(out["launches"].values()),
           f"chaos: kernels launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- spans, metrics and the flight recorder on the card -------------------------
+
+OBS_LEVELS = ((1, 100), (16, 25))  # connections, requests on each
+OBS_USERS = 100
+OBS_COVERAGE = 0.95  # tests/test_spans.py's acceptance share
+OBS_SPEED_S = 15.0  # the reference case's bound on the topic hop
+OBS_ROUTE = 'route="/recommend/{userID}",method="GET",status="200"'
+OBS_RECENT = (256, 2048)  # /trace?limit= tried in turn for a linked call
+
+
+def traced_requests(port: int, paths: list, concurrency: int, per_conn: int) -> list:
+    """Run in a client process of its own: ``concurrency`` threads, each on
+    its own keep-alive connection, send ``per_conn`` ``GET`` requests of
+    ``paths`` each, every one with a ``traceparent`` of a fresh trace id,
+    and fetch that trace from ``/trace?trace_id=`` right after the
+    response (the span ring is bounded, so a later read could find it
+    gone). Where the trace holds no device call with the request's queue
+    wait as its parent (the coalescer parents a call into its first waiter
+    and links the others), the recent spans are searched for the call
+    that links the wait. Returns one record a request: the status, the
+    trace id sent and the one answered, the trace's spans and the linked
+    call (or None)."""
+    out: list = [None] * (concurrency * per_conn)
+    start = threading.Barrier(concurrency)
+
+    def linked_call(conn, wait_id: str):
+        for limit in OBS_RECENT:
+            _, _, data = conn.request("GET", f"/trace?limit={limit}")
+            for s in json.loads(data)["recent"]:
+                if (s["name"] == "coalescer.device_call"
+                        and any(ln["span_id"] == wait_id for ln in s["links"])):
+                    return s
+        return None
+
+    def client(c: int) -> None:
+        conn = HttpClient(port)
+        try:
+            start.wait()
+            for j in range(per_conn):
+                k = c * per_conn + j
+                trace_id = spans.new_trace_id()
+                status, head, _ = conn.request(
+                    "GET", paths[k % len(paths)],
+                    headers={"traceparent": f"00-{trace_id}-{spans.new_span_id()}-01"})
+                _, _, data = conn.request("GET", f"/trace?trace_id={trace_id}")
+                got = json.loads(data)["spans"]
+                waits = [s for s in got if s["name"] == "coalescer.queue_wait"]
+                call = None
+                if len(waits) == 1 and not any(
+                        s["name"] == "coalescer.device_call"
+                        and s["parent_id"] == waits[0]["span_id"] for s in got):
+                    call = linked_call(conn, waits[0]["span_id"])
+                out[k] = {"status": status, "trace_id": trace_id,
+                          "answered": head.get("x-oryx-trace-id"), "spans": got,
+                          "linked_call": call}
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _end_s(s: dict) -> float:
+    return s["start"] + s["duration_ms"] / 1000.0
+
+
+def request_breakdown(rec: dict, label: str) -> dict:
+    """One traced ``/recommend`` (a :func:`traced_requests` record) held to
+    ``tests/test_spans.py``'s acceptance case: 200 under the trace id sent;
+    the trace holds the ingress span and one queue wait; the device call,
+    with ``batch.size`` >= 1 and ``pad.waste_rows``, reaches the wait as
+    its parent or by a link; the wait and the call cover at least
+    ``OBS_COVERAGE`` of the time from the wait's start to the call's end.
+    Returns the ingress, wait and call milliseconds, the ingress time
+    outside wait ∪ call (the HTTP front's own share), the call's id, its
+    batch size and whether it was reached by a link."""
+    where = f"{label} {rec['trace_id']}"
+    check(rec["status"] == 200 and rec["answered"] == rec["trace_id"],
+          f"{where}: status {rec['status']}, trace id answered {rec['answered']}")
+    got = rec["spans"]
+    ingress = [s for s in got if s["name"].startswith("http GET /recommend")]
+    waits = [s for s in got if s["name"] == "coalescer.queue_wait"]
+    check(len(ingress) == 1 and len(waits) == 1,
+          f"{where}: {len(ingress)} ingress spans and {len(waits)} queue waits in "
+          f"{[s['name'] for s in got]}")
+    (ingress,), (wait,) = ingress, waits
+    check("queue_wait_ms" in wait["attributes"], f"{where}: the wait has no queue_wait_ms")
+    parented = [s for s in got if s["name"] == "coalescer.device_call"
+                and s["parent_id"] == wait["span_id"]]
+    call = parented[0] if parented else rec["linked_call"]
+    check(call is not None and (call["parent_id"] == wait["span_id"] or any(
+        ln["span_id"] == wait["span_id"] for ln in call["links"])),
+        f"{where}: no device call reaches the queue wait {wait['span_id']}")
+    check(call["attributes"].get("batch.size", 0) >= 1
+          and "pad.waste_rows" in call["attributes"],
+          f"{where}: the call's attributes {call['attributes']}")
+    w0, c1 = wait["start"], _end_s(call)
+    inner = _interval_union([(w0, _end_s(wait)), (call["start"], c1)])
+    check(inner >= OBS_COVERAGE * (c1 - w0),
+          f"{where}: wait and call cover {inner:.6f} of {c1 - w0:.6f} s: {got} {call}")
+    lo, hi = ingress["start"], _end_s(ingress)
+    covered = _interval_union([(max(lo, a), min(hi, b)) for a, b in
+                        ((w0, _end_s(wait)), (call["start"], c1)) if min(hi, b) > max(lo, a)])
+    return {"ingress_ms": ingress["duration_ms"], "wait_ms": wait["duration_ms"],
+            "call_ms": call["duration_ms"], "front_ms": max(0.0, (hi - lo) - covered) * 1000.0,
+            "call": call["span_id"], "batch": call["attributes"]["batch.size"],
+            "linked": not parented}
+
+
+def _quantiles(values) -> dict:
+    v = np.asarray(values, dtype=np.float64)
+    return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+
+
+def openmetrics_exemplars(text: str, name: str) -> list:
+    """``(labels, trace id)`` of each exemplar on ``name``'s buckets in an
+    OpenMetrics exposition."""
+    return re.findall(rf'^{re.escape(name)}_bucket\{{(.*?)\}} \S+ # '
+                      r'\{trace_id="([0-9a-f]{32})"\}', text, re.MULTILINE)
+
+
+def observability_phase(loop: "LambdaLoop", rng, device=None) -> dict:
+    """``tests/test_spans.py``'s and ``tests/test_metrics.py``'s end-to-end
+    assertions on a serving layer of the loop's generation (see the module
+    docstring): (a) request spans at 1 and 16 connections, (b) the scrape's
+    deltas and an OpenMetrics exemplar resolved to its trace, (c) one
+    ``/pref`` continued in the loop's speed layer under its trace id, (d)
+    the flight recorder's bundle. No kernel may launch. ``device``: the
+    layer's (None: the card; the tests run it on the CPU)."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    model = loop.serving.get_model()
+    total = loop.update_size()
+    conf = loop.conf.with_values({
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.models.als.serving.ALSServingModelManager",
+        "oryx.serving.application-resources": "oryx_tpu_torch.serving.resources.als",
+        "oryx.serving.api.read-only": False,
+    })
+    users = model.all_user_ids()
+    sample = [users[j] for j in rng.choice(len(users), min(OBS_USERS, len(users)),
+                                           replace=False)]
+    paths = [f"/recommend/{u}?howMany=10" for u in sample]
+    out: dict = {"update_messages": total}
+    # the client process starts first: its imports overlap the replay
+    with mp.get_context("spawn").Pool(1) as pool:
+        layer, port, t_start, threads = start_layer(conf, "observability", device)
+        client = HttpClient(port)
+        try:
+            wait_until(lambda: applied_messages(layer) >= total, 300,
+                       "observability: the replay", layers=loop.layers, poll=0.01)
+            out["replay_s"] = time.perf_counter() - t_start
+            check(client.request("GET", "/ready")[0] == 200, "observability: /ready")
+            warm = pool.apply(traced_requests, (port, paths, 1, 1))  # the pool's imports
+            check(warm[0]["status"] == 200, f"observability: the first request {warm}")
+
+            # (a) request spans, (b) the scrape around them
+            _, _, data = client.request("GET", "/metrics")
+            before = parse_prometheus(data.decode())
+            t0 = time.perf_counter()
+            levels, sent = {}, 0
+            for concurrency, per_conn in OBS_LEVELS:
+                recs = pool.apply(traced_requests, (port, paths, concurrency, per_conn))
+                rows = [request_breakdown(r, f"observability at {concurrency}")
+                        for r in recs]
+                sent += len(recs)
+                calls = {r["call"]: r["batch"] for r in rows}
+                level = {"requests": len(rows), "checked": len(rows),
+                         "linked": sum(r["linked"] for r in rows),
+                         "device_calls": len(calls),
+                         **{k: _quantiles([r[k] for r in rows])
+                            for k in ("ingress_ms", "wait_ms", "call_ms", "front_ms")}}
+                if concurrency > 1:
+                    sizes = np.bincount(list(calls.values()))
+                    level["batch_sizes"] = {str(b): int(n) for b, n in enumerate(sizes) if n}
+                levels[str(concurrency)] = level
+            out["spans"] = {"levels": levels, "seconds": time.perf_counter() - t0}
+            _, _, data = client.request("GET", "/metrics")
+            after = parse_prometheus(data.decode())
+
+            def delta(name: str, labels: str = "") -> float:
+                return (after.get(name, {}).get(labels, 0.0)
+                        - before.get(name, {}).get(labels, 0.0))
+
+            requests_now = after.get("oryx_serving_requests_total", {}).get(OBS_ROUTE)
+            scrape = {"requests_total": delta("oryx_serving_requests_total", OBS_ROUTE),
+                      "batch_size_sum": delta("oryx_coalescer_batch_size_sum"),
+                      "topn_queries": delta("oryx_serving_topn_queries_total"),
+                      "queue_depth": after.get("oryx_coalescer_queue_depth", {}).get("")}
+            check(scrape["requests_total"] == sent and scrape["batch_size_sum"] == sent
+                  and scrape["topn_queries"] >= sent and scrape["queue_depth"] == 0,
+                  f"observability: the scrape's deltas {scrape} for {sent} requests")
+            status, head, data = client.request(
+                "GET", "/metrics", headers={"Accept": "application/openmetrics-text"})
+            check(status == 200 and head.get("content-type", "").startswith(
+                "application/openmetrics-text"),
+                f"observability: OpenMetrics scrape {status} {head.get('content-type')}")
+            exemplars = [tid for labels, tid in openmetrics_exemplars(
+                data.decode(), "oryx_serving_request_latency_seconds")
+                if labels.startswith('route="/recommend/{userID}"')]
+            check(exemplars, "observability: no exemplar on the /recommend latency")
+            _, _, data = client.request("GET", "/trace?limit=2048")
+            recent = json.loads(data)["recent"]
+            resolved = None
+            for tid in exemplars:
+                got = client.json(f"/trace?trace_id={tid}")["spans"]
+                waits = [s for s in got if s["name"] == "coalescer.queue_wait"]
+                own = any(s["name"] == "coalescer.device_call" for s in got)
+                linked = waits and any(
+                    s["name"] == "coalescer.device_call"
+                    and any(ln["span_id"] == waits[0]["span_id"] for ln in s["links"])
+                    for s in recent)
+                if any(s["name"].startswith("http GET") for s in got) and (own or linked):
+                    resolved = {"trace_id": tid, "spans": len(got),
+                                "call": "in the trace" if own else "by a link"}
+                    if own:
+                        break
+            check(resolved is not None,
+                  f"observability: no exemplar of {exemplars} resolves to a device call")
+            scrape["exemplars"] = len(exemplars)
+            scrape["exemplar"] = resolved
+            out["scrape"] = scrape
+
+            # (c) the ingress hop into the loop's speed tier
+            t0 = time.perf_counter()
+            trace_id = spans.new_trace_id()
+            input_start = loop.broker.size(loop.input_topic)
+            since = len(loop.watch.commits)
+            pref_user = sample[0]
+            pref_item = model.all_item_ids()[int(rng.integers(len(model.all_item_ids())))]
+            status, head, data = client.request(
+                "POST", f"/pref/{pref_user}/{pref_item}", body=b"1.0",
+                headers={"traceparent": f"00-{trace_id}-{spans.new_span_id()}-01"})
+            check(status == 200 and head.get("x-oryx-trace-id") == trace_id,
+                  f"observability: POST /pref {status} {data[:200]!r}")
+            t_sent = time.perf_counter()
+
+            def consumed():
+                got = client.json(f"/trace?trace_id={trace_id}")["spans"]
+                return any(s["name"] == "speed.consume_input" for s in got)
+
+            t_hop = wait_until(consumed, OBS_SPEED_S,
+                               "observability: speed.consume_input under the /pref trace",
+                               layers=loop.layers, poll=0.05)
+            names = sorted({s["name"] for s in
+                            client.json(f"/trace?trace_id={trace_id}")["spans"]})
+            check(any(n.startswith("http POST /pref") for n in names),
+                  f"observability: the /pref trace {names}")
+            loop.wait_commit(loop.speed_group, input_start + 1, since, 60,
+                             "observability: the speed generation of /pref")
+            settled = loop.settle(60, "observability: the /pref UPs")
+            check(settled["total"] > total, "observability: /pref published no UP")
+            out["speed_hop"] = {"trace_id": trace_id, "spans": names,
+                                "to_consume_input_s": t_hop - t_sent,
+                                "ups": settled["total"] - total,
+                                "seconds": time.perf_counter() - t0}
+
+            # (d) the flight recorder's bundle
+            bundle = blackbox.bundle("observability")
+            versions = bundle.get("versions", {})
+            on_card = layer.device.type == "cuda"
+            memory = bundle.get("memory", {}).get("devices", {})
+            in_bundle = bundle.get("metrics", {}).get(
+                "oryx_serving_requests_total", {}).get(OBS_ROUTE)
+            check(versions.get("oryx_tpu_torch") and versions.get("torch")
+                  and (not on_card or "cuda:0" in memory)
+                  and in_bundle == requests_now,
+                  f"observability: the bundle's versions {versions}, memory "
+                  f"{sorted(memory)}, requests {in_bundle} against the scrape's "
+                  f"{requests_now}")
+            out["bundle"] = {"versions": versions, "memory_devices": sorted(memory),
+                             "requests_total": in_bundle}
+        finally:
+            client.close()
+            closed = close_layer(layer, port, "observability", threads)
+    out.update(closed)
+    out["launches"] = dict(K.LAUNCHES)
+    check(not any(out["launches"].values()),
+          f"observability: kernels launched: {out['launches']}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -7372,6 +7695,7 @@ def main() -> int:
     chaos = loop.pop("chaos")
     serving_swap = loop.pop("serving_swap")
     quant_http = loop.pop("serving_quant_http")
+    observability = loop.pop("observability")
     tools = serving_http.pop("tools")
     emit("lambda_loop", **loop)
     emit("serving_http", **serving_http, kmeans=km_http)
@@ -7391,6 +7715,9 @@ def main() -> int:
                    "generation 2 is applied",
         "load": f"{SWAP_CONNECTIONS} connections over {HTTP_USERS} users"})
     emit("serving_quant_http", **quant_http, gpu=smi)
+    emit("observability", **observability, gpu=smi, reduced={
+        "layer": "one replica of the loop's generation on its memory: topics; "
+                 "the hop's speed tier is the loop's"})
     generation, speed = loop["batch"], loop["speed"]
     # the port's sanitizer in a child (this process stays unsanitized)
     emit("sanitize", **sanitize_phase(), gpu=smi)
@@ -7434,6 +7761,8 @@ def main() -> int:
                          for w in serving_http["launches"]},
         # the chaos drill's layer and apps launch none
         "chaos": chaos["launches"],
+        # the spans, scrape and bundle checks' layer launches none
+        "observability": observability["launches"],
         # read from the batch process's oryx_device_calls_total
         "deployment": {w: deployment["launches"][w] for w in ALS_WRAPPERS},
         # the serving representations (in process and over HTTP) launch none

@@ -58,6 +58,7 @@ from oryx_tpu_torch.common import config as cfg
 from oryx_tpu_torch.common import faults
 from oryx_tpu_torch.common import lineage
 from oryx_tpu_torch.common import metrics as metrics_mod
+from oryx_tpu_torch.common import rand
 from oryx_tpu_torch.common import resilience
 from oryx_tpu_torch.common import spans
 from oryx_tpu_torch.common.tracing import StepTracer
@@ -686,7 +687,12 @@ def test_smoke_chaos_phase_on_a_small_loop(tmp_path):
     loop = LambdaLoop(str(tmp_path), {**_LOOP, "oryx.id": "chaos"},
                       broker="memory:", serving_device="cpu")
     try:
-        loop.run_batch(lines, 0.2, 0.5, 120)
+        # the generation's split and Y₀ from a fixed seed, whatever ran
+        # before in this process: the drill needs every sampled user's 10th
+        # score positive, which a random Y₀ on this loop misses about one
+        # time in eight
+        with rand.seeded(cs.SEED):
+            loop.run_batch(lines, 0.2, 0.5, 120)
         loop.settle(30, "before the chaos phase")
         out = cs.chaos_phase(loop, np.random.default_rng(5), device="cpu")
         assert not loop.speed.stopped
@@ -709,6 +715,51 @@ def test_smoke_chaos_phase_on_a_small_loop(tmp_path):
     # the coalesced answers, each fault step's, the outage's and the warm
     # window's, all against the loop's model
     assert out["answers_checked"] >= 2 * cs.CHAOS_USERS + 3 + 48
+    assert not any(out["launches"].values())
+
+
+def test_smoke_observability_phase_on_a_small_loop(tmp_path):
+    """``chip_smoke.observability_phase`` on the loop above on the CPU: 100
+    traced ``/recommend`` from one connection and 25 from each of 16, each
+    trace held to the reference's coverage rule; the scrape's exact deltas
+    and an OpenMetrics exemplar resolved; one ``/pref`` continued in the
+    loop's speed layer; the flight recorder's bundle."""
+    import chip_smoke as cs
+
+    lines = _loop_lines()[:N_LINES - 2 * MICROBATCH]
+    loop = LambdaLoop(str(tmp_path), {**_LOOP, "oryx.id": "observability"},
+                      broker="memory:", serving_device="cpu")
+    try:
+        with rand.seeded(cs.SEED):
+            loop.run_batch(lines, 0.2, 0.5, 120)
+        loop.settle(30, "before the observability phase")
+        total = loop.update_size()
+        out = cs.observability_phase(loop, np.random.default_rng(5), device="cpu")
+        assert not loop.speed.stopped
+    finally:
+        loop.close()
+    loop.await_layers()
+    sent = sum(c * n for c, n in cs.OBS_LEVELS)
+    assert sent == 500
+    for (concurrency, per_conn), (key, level) in zip(cs.OBS_LEVELS,
+                                                     out["spans"]["levels"].items()):
+        assert key == str(concurrency)
+        assert level["requests"] == level["checked"] == concurrency * per_conn
+        assert 0 <= level["wait_ms"]["p50"] <= level["ingress_ms"]["p99"]
+    assert out["spans"]["levels"]["1"]["linked"] == 0
+    sizes = out["spans"]["levels"]["16"]["batch_sizes"]
+    assert sum(int(b) * n for b, n in sizes.items()) == 400
+    scrape = out["scrape"]
+    assert scrape["requests_total"] == scrape["batch_size_sum"] == sent
+    assert scrape["topn_queries"] >= sent and scrape["queue_depth"] == 0
+    assert len(scrape["exemplar"]["trace_id"]) == 32
+    hop = out["speed_hop"]
+    assert "speed.consume_input" in hop["spans"]
+    assert hop["to_consume_input_s"] < cs.OBS_SPEED_S
+    assert out["update_messages"] == total and hop["ups"] >= 2
+    assert out["bundle"]["versions"]["oryx_tpu_torch"]
+    assert out["bundle"]["requests_total"] >= sent
+    assert out["threads_left"] == []
     assert not any(out["launches"].values())
 
 

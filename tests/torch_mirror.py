@@ -11,6 +11,20 @@ strings that the layers load by reflection.
 
 The rebinding by :func:`tests.test_torch_batcher._mirror` swaps only
 module globals, so it cannot reach the last two; this loader can.
+
+:data:`MAPPING` holds general renames only: dotted names under
+``oryx_tpu.``, the quoted package name ``"oryx_tpu"`` (the key under which
+a flight-recorder bundle lists the package's version), and the reference's
+helper modules beside their port copies (``tests.fleet_app``, the fleet
+app that a CLI child loads by its dotted name, becomes
+``tests.test_torch_fleet_app``).
+
+A body that cannot run verbatim on the port takes a per-file patch:
+``load(name, patches=[(old, new), ...])`` replaces ``old`` by ``new`` in
+the mapped text. Each ``old`` must occur exactly once, or :func:`load`
+raises, so a patch that no longer applies fails loudly instead of
+letting the body run unpatched. A patch may add lines; tracebacks past it
+are off by that many.
 """
 
 from __future__ import annotations
@@ -31,26 +45,36 @@ MAPPING = (
     (r"\boryx_tpu\.", "oryx_tpu_torch."),
     (r"\btests\.test_serving\b", "tests.torch_serving_helpers"),
     (r"\btests\.test_lambda\b", "tests.test_torch_lambda"),
+    (r'"oryx_tpu"', '"oryx_tpu_torch"'),
+    (r"\btests\.fleet_app\b", "tests.test_torch_fleet_app"),
 )
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 
 
-def mapped_source(ref_test: str) -> str:
-    """The text of ``tests/<ref_test>`` with :data:`MAPPING` applied."""
+def mapped_source(ref_test: str, patches=()) -> str:
+    """The text of ``tests/<ref_test>`` with :data:`MAPPING` applied, then
+    each ``(old, new)`` of ``patches``; raises ``ValueError`` unless every
+    ``old`` occurs exactly once in the text it is applied to."""
     with open(os.path.join(_TESTS, ref_test), encoding="utf-8") as f:
         src = f.read()
     for pattern, replacement in MAPPING:
         src = re.sub(pattern, replacement, src)
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise ValueError(f"{ref_test}: patch {old!r} matches "
+                             f"{src.count(old)} times, not once")
+        src = src.replace(old, new)
     return src
 
 
-def load(ref_test: str) -> types.ModuleType:
-    """``tests/<ref_test>`` executed, after :data:`MAPPING`, as the module
+def load(ref_test: str, patches=()) -> types.ModuleType:
+    """``tests/<ref_test>`` executed, after :data:`MAPPING` and
+    ``patches`` (see :func:`mapped_source`), as the module
     ``_mirrored_<stem>``."""
     module = types.ModuleType("_mirrored_" + ref_test[:-3])
     module.__file__ = os.path.join(_TESTS, ref_test)
-    code = compile(mapped_source(ref_test), module.__file__, "exec")
+    code = compile(mapped_source(ref_test, patches), module.__file__, "exec")
     exec(code, module.__dict__)
     return module
 
