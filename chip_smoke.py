@@ -253,6 +253,19 @@ CUDA toolkit's ``nvcc``. Imports nothing of JAX or of the reference package
            ``/predict`` and 100 ``/classificationDistribution`` equal to
            the manager's own model's, ``/feature/importance`` equal to the
            PMML's, no answer but 200;
+  als_quality
+           ``tests/test_als_quality.py``'s three trains on the card through
+           ``ALSUpdate`` (split, ``build_model``, ``evaluate``), on that
+           file's own data (copied here: the synthetic MovieLens-100K shape,
+           900 users × 1,600 items, 100,000 lines; 500 users' explicit
+           low-rank ratings) and configs, each under ``rand.seeded``: k = 20,
+           λ = 0.01, 8 iterations with float32 and then bfloat16 Gramian
+           inputs (hold-out AUC > 0.75 each), and explicit k = 8, λ = 0.05,
+           10 iterations (RMSE < 0.35). The launch counters are set to 0
+           just before each ``build_model`` and read just after: both ALS
+           kernels once per row block and iteration, the gather-Gramian in
+           the train's compute dtype; each first launch at a shape held
+           against the plain version;
   lambda_loop
            the ALS lambda loop through the port's runtime, after the
            k-means phases (mostly host work), on ``memory:`` topics: a ``BatchLayer`` and a
@@ -553,8 +566,9 @@ phase and its HTTP half ``serving_quant`` (all 0), in the RDF phase
 batch process
 ``deployment``, read from its bundle's ``oryx_device_calls_total`` and
 equal to ``lambda_loop.batch``, the gather-Gramian's reduce launches too,
-in the staged swap's generation 2 at k = 60 ``serving_swap``, and in
-the mesh phase's sharded train and data-parallel Lloyd run ``mesh``;
+in the staged swap's generation 2 at k = 60 ``serving_swap``, in
+the mesh phase's sharded train and data-parallel Lloyd run ``mesh``, and
+in the three quality trains ``als_quality`` (summed);
 ``path_checks``:
 for each generation, one record per kernel and shape it launched at, that
 launch's output against the plain version on the same inputs), the ``nvidia-smi`` line, and last
@@ -7471,6 +7485,165 @@ def rdf_phase(data: dict, dev, rng) -> dict:
     return out
 
 
+# -- als_quality: the reference's quality gates through the card's kernels ------
+
+# tests/test_als_quality.py's bars, unchanged: hold-out AUC above 0.75 for
+# each compute dtype, explicit RMSE below 0.35
+QUALITY_AUC, QUALITY_RMSE = 0.75, 0.35
+# that file's three trains: (label, config, hyperparameters)
+QUALITY_IMPLICIT = {"oryx.als.iterations": 8, "oryx.als.hyperparams.features": 20,
+                    "oryx.als.hyperparams.lambda": 0.01,
+                    "oryx.ml.eval.test-fraction": 0.1}
+QUALITY_TRAINS = (
+    ("implicit_float32", {**QUALITY_IMPLICIT, "oryx.als.compute-dtype": "float32"},
+     [20, 0.01, 1.0]),
+    ("implicit_bfloat16", {**QUALITY_IMPLICIT, "oryx.als.compute-dtype": "bfloat16"},
+     [20, 0.01, 1.0]),
+    ("explicit", {"oryx.als.implicit": False, "oryx.als.iterations": 10,
+                  "oryx.als.hyperparams.features": 8,
+                  "oryx.als.hyperparams.lambda": 0.05,
+                  "oryx.ml.eval.test-fraction": 0.1}, [8, 0.05, 1.0]),
+)
+
+
+def _synthetic_movielens(n_users=900, n_items=1600, n_ratings=100_000, rank=5, seed=0):
+    """Low-rank preference structure with popularity skew, timestamped."""
+    rng = np.random.default_rng(seed)
+    u_f = rng.standard_normal((n_users, rank))
+    i_f = rng.standard_normal((n_items, rank))
+    scores = u_f @ i_f.T  # (U, I)
+    thresholds = np.quantile(scores, 0.75, axis=1)  # per-user affinity cut
+    # popularity skew: power law over item ranks (shuffled across item ids)
+    pop = rng.permutation(np.arange(1, n_items + 1, dtype=np.float64) ** -0.8)
+    pop /= pop.sum()
+    lines = []
+    seen = set()
+    users = rng.integers(0, n_users, size=n_ratings * 8)
+    items = rng.choice(n_items, p=pop, size=n_ratings * 8)
+    accept = rng.random(n_ratings * 8)
+    for u, i, a in zip(users, items, accept):
+        if len(lines) >= n_ratings:
+            break
+        if (u, i) in seen:
+            continue
+        # interact almost only with high-affinity items
+        if scores[u, i] < thresholds[u] and a < 0.95:
+            continue
+        seen.add((u, i))
+        lines.append(f"u{u},i{i},1,{len(lines)}")
+    return lines
+
+
+def explicit_ratings() -> list:
+    """``tests/test_als_quality.py::test_als_explicit_rmse_gate``'s
+    ratings: rank-4 preferences around 3.0 with noise 0.1, 60 items for
+    each of 500 users, random timestamps (the statements are that body's,
+    pinned equal by ``tests/test_torch_als_quality.py``)."""
+    rng = np.random.default_rng(3)
+    n_users, n_items, rank = 500, 400, 4
+    u_f = rng.standard_normal((n_users, rank)) * 0.8
+    i_f = rng.standard_normal((n_items, rank)) * 0.8
+    full = u_f @ i_f.T + 3.0  # centered on a 1..5-ish scale
+    lines = []
+    for u in range(n_users):
+        for i in rng.choice(n_items, 60, replace=False):
+            r = full[u, i] + 0.1 * rng.standard_normal()
+            lines.append(f"u{u},i{i},{r:.4f}")
+    # random timestamps: the time-ordered test split must interleave users
+    # (sequential stamps would put the tail users wholly in test, where
+    # their unseen ids drop every pair — reference join semantics)
+    for n, t in enumerate(rng.permutation(len(lines)).tolist()):
+        lines[n] += f",{t}"
+    return lines
+
+
+def quality_train(label: str, overrides: dict, hyper: list, lines: list,
+                  dev) -> dict:
+    """One of ``tests/test_als_quality.py``'s trains through ``ALSUpdate``
+    on ``dev``: the time-ordered split, ``build_model`` with the launch
+    counters set to 0 just before and read just after (both ALS kernels
+    once per row block and iteration, at ``features``, the gather-Gramian
+    in the config's compute dtype, none other), each first launch at a
+    shape held against the plain version, then ``evaluate`` held to the
+    file's bar."""
+    conf = oryx_config.overlay_on(overrides, oryx_config.get_default())
+    update = ALSUpdate(conf, device=dev)
+    features, iterations = int(hyper[0]), update.iterations
+    t0 = time.perf_counter()
+    train, test = update.split_new_data_to_train_test(
+        [KeyMessage(None, ln) for ln in lines])
+    split_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="oryx-quality-") as tmp, \
+            FirstLaunches([(tr, "gather_gramian_accumulate", gg_key),
+                           (tr, "spd_solve_batched", spd_key)]) as first:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        pmml = update.build_model(None, train, hyper, Path(tmp))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        counted = dict(K.SHAPE_LAUNCHES)
+        check(pmml is not None, f"als_quality {label}: no model built")
+        t0 = time.perf_counter()
+        score = update.evaluate(None, pmml, Path(tmp), test, train)
+        evaluate_s = time.perf_counter() - t0
+        record = update.candidate_record(tmp)
+    blocks = sum(record["blocks"].values())
+    expected = {"gather_gramian_accumulate": iterations * blocks,
+                "spd_solve_batched": iterations * blocks,
+                "kmeans_assign_accumulate": 0}
+    check(launches == expected, f"als_quality {label}: launched {launches}, "
+          f"expected {expected} ({iterations} iterations x {blocks} blocks)")
+    dtype = str(getattr(torch, update.compute_dtype))
+    gg_shapes = [shape for kernel, shape in counted
+                 if kernel.startswith("gather_gramian_accumulate")]
+    check(gg_shapes and all(s[3] == features and s[4] == dtype for s in gg_shapes),
+          f"als_quality {label}: gather-Gramian shapes {gg_shapes}, expected "
+          f"k = {features} in {dtype}")
+    check(all(shape[1] == features for kernel, shape in counted
+              if kernel.startswith("spd_solve_batched")),
+          f"als_quality {label}: SPD shapes {counted}, expected k = {features}")
+    held = hold_path_launches(first, counted, f"als_quality.{label}")
+    out = {"train_lines": len(train), "test_lines": len(test),
+           "features": features, "iterations": iterations,
+           "compute_dtype": update.compute_dtype, "split_s": split_s,
+           "build_s": build_s, "evaluate_s": evaluate_s,
+           "train_s": record["train_s"], "pack_s": record["pack_s"],
+           "iter_s": record["iter_s"], "blocks": record["blocks"],
+           "launches": launches,
+           "shape_launches": {launch_key(*key): c for key, c in counted.items()},
+           "held_against_plain": held}
+    if update.implicit:
+        check(score > QUALITY_AUC, f"als_quality {label}: AUC {score} <= {QUALITY_AUC}")
+        out["auc"] = score
+    else:
+        check(-score < QUALITY_RMSE,
+              f"als_quality {label}: RMSE {-score} >= {QUALITY_RMSE}")
+        out["rmse"] = -score
+    return out
+
+
+def als_quality_phase(dev) -> dict:
+    """``tests/test_als_quality.py``'s three trains on the card through the
+    hand-written kernels, each under ``rand.seeded(SEED)`` as each of that
+    file's cases starts from the test seed: the synthetic MovieLens-100K
+    shape implicit in float32 and in bfloat16, and the explicit low-rank
+    ratings; held to that file's AUC and RMSE bars."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = {"implicit": _synthetic_movielens(), "explicit": explicit_ratings()}
+    out: dict = {"data_s": time.perf_counter() - t0,
+                 "lines": {k: len(v) for k, v in data.items()}, "trains": {}}
+    for label, overrides, hyper in QUALITY_TRAINS:
+        with rand.seeded(SEED):
+            out["trains"][label] = quality_train(
+                label, overrides, hyper, data[label.split("_")[0]], dev)
+    out["launches"] = {w: sum(t["launches"][w] for t in out["trains"].values())
+                       for w in ALS_WRAPPERS}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7683,6 +7856,12 @@ def main() -> int:
                                f"{RDF_CPU_ROWS:,} rows",
              "generation": f"the first {RDF_LINES:,} rows as CSV lines (the "
                            "host parse is per-token Python, as in the reference)"})
+    # the reference's quality gates through the kernels, on its own data
+    als_quality = als_quality_phase(dev)
+    emit("als_quality", **als_quality, gpu=smi, reduced={
+        "data": "none: tests/test_als_quality.py's own shapes (900 users x "
+                "1,600 items, 100,000 lines; 500 x 400 explicit ratings, 60 "
+                "a user) and configs"})
     # last: mostly host work, and nothing after it is profiled; the loop
     # and the deployment on the first LOOP_USERS users' lines
     loop_lines = [ln for ln in lines if int(ln[1:ln.index(",")]) < LOOP_USERS]
@@ -7779,6 +7958,9 @@ def main() -> int:
         # in the mesh line
         "mesh": {**mesh["als"]["launches"],
                  "kmeans_assign_accumulate": mesh["kmeans"]["launches"]},
+        # the reference's three quality trains, summed (each in the
+        # als_quality line)
+        "als_quality": als_quality["launches"],
     }
     # the same lines, split and shapes as the loop's batch half: the same
     # launches, kernel by kernel, the gather-Gramian's reduce too
@@ -7796,6 +7978,9 @@ def main() -> int:
         "als_durability": durability["held_against_plain"],
         "serving_swap": serving_swap["gen2"]["held_against_plain"],
         "mesh": mesh_held,
+        "als_quality": [{"train": label, **entry}
+                        for label, t in als_quality["trains"].items()
+                        for entry in t["held_against_plain"]],
     }
     print(json.dumps({"kernels": entries, "paths": paths,
                       "path_checks": path_checks, "gpu": smi,

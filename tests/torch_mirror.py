@@ -25,12 +25,17 @@ the mapped text. Each ``old`` must occur exactly once, or :func:`load`
 raises, so a patch that no longer applies fails loudly instead of
 letting the body run unpatched. A patch may add lines; tracebacks past it
 are off by that many.
+
+:class:`LenOnlyIDs` is a JAX-free copy of the suite conftest's helper of
+that name, for a mirror that runs where the conftest cannot be imported;
+``tests/test_torch_als.py`` pins the copy equal to it.
 """
 
 from __future__ import annotations
 
 import ast
 import contextlib
+import inspect
 import os
 import re
 import types
@@ -39,6 +44,7 @@ import pytest
 from _pytest.fixtures import FixtureFunctionDefinition
 
 from oryx_tpu_torch.common import config as cfg
+from oryx_tpu_torch.common import rand
 
 # (pattern, replacement), applied in order to the reference file's text
 MAPPING = (
@@ -88,12 +94,28 @@ def reference_tests(ref_test: str) -> list:
             if isinstance(node, ast.FunctionDef) and node.name.startswith("test_")]
 
 
+def reference_classes(ref_test: str) -> dict:
+    """``tests/<ref_test>``'s top-level ``Test*`` classes, each with the
+    names of its ``test_*`` methods, read from its syntax tree."""
+    with open(os.path.join(_TESTS, ref_test), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    return {node.name: [m.name for m in node.body
+                        if isinstance(m, ast.FunctionDef)
+                        and m.name.startswith("test_")]
+            for node in tree.body
+            if isinstance(node, ast.ClassDef) and node.name.startswith("Test")}
+
+
 def collectable(module: types.ModuleType) -> dict:
-    """What pytest collects from ``module``: its ``test_*`` functions and
-    its fixtures, by name, for a port test file's ``globals().update``."""
+    """What pytest collects from ``module``: its ``test_*`` functions, the
+    ``Test*`` classes it defines (not one it imports, such as a
+    ``TestClient``) and its fixtures, by name, for a port test file's
+    ``globals().update``."""
     return {
         name: value for name, value in vars(module).items()
         if (name.startswith("test_") and isinstance(value, types.FunctionType))
+        or (name.startswith("Test") and inspect.isclass(value)
+            and value.__module__ == module.__name__)
         or isinstance(value, FixtureFunctionDefinition)
     }
 
@@ -123,3 +145,35 @@ def cpu_default():
         m.setattr(cfg, "_default_config", cfg.overlay_on(
             {"oryx.default-compute-config.platform": "cpu"}, default))
         yield
+
+
+@contextlib.contextmanager
+def rand_restored():
+    """The port's ``common/rand`` state as it was, after the block: a
+    mirrored body's ``rand.use_test_seed()`` switches every generator of
+    the process to the test seed, which no later file in the same worker
+    should inherit. Restores the switch, the seed, the torch seed counter
+    and the state of each tracked numpy generator."""
+    with rand._lock:
+        saved = (rand._use_test_seed, rand._seed, rand._torch_seed_counter)
+        states = [(g, g.bit_generator.state) for g in list(rand._instances)]
+    try:
+        yield
+    finally:
+        with rand._lock:
+            (rand._use_test_seed, rand._seed,
+             rand._torch_seed_counter) = saved
+            for g, state in states:
+                g.bit_generator.state = state
+
+
+class LenOnlyIDs:
+    """len()-only IDIndexMapping stand-in for trainer tests whose rows are
+    already dense indices (materializing id strings would only test the
+    host dict, not the trainer)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
